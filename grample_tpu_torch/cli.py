@@ -1,0 +1,139 @@
+"""Command-line interface: the ``sample`` command for ``-s simple``.
+
+Mirrors ``grample_tpu.cli`` (reference ``cmd/root.go:163-250``) with the
+same flags and derived defaults, on a PyTorch device:
+
+    python -m grample_tpu_torch.cli sample -m net.uai -d -o -s simple
+    python -m grample_tpu_torch.cli sample -m net.uai -o --device cpu
+
+The parts of the reference CLI that later slices port raise
+``NotImplementedError`` naming their ROADMAP.md item: ``-s collapsed``
+and ``-s adaptive`` (A8, A9), ``--checkpoint``/``--resume`` (A10),
+``--mesh``/``--distributed`` (A11), and the ``collapse`` (A8) and ``dot``
+(A12) subcommands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("-v", "--verbose", action="store_true", help="verbose output")
+    common.add_argument("-e", "--seed", type=int, default=0, help="random seed (<1: wall clock)")
+    common.add_argument("-t", "--trace", default="", help="trace output file")
+    common.add_argument("--device", default="cuda",
+                        help="torch device the chains run on (cuda, cuda:N or cpu)")
+    p = argparse.ArgumentParser(
+        prog="grample-tpu-torch",
+        description="Gibbs marginal inference for UAI discrete PGMs on a GPU",
+        parents=[common],
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    s = sub.add_parser("sample", help="estimate marginals (the MAR task)", parents=[common])
+    s.add_argument("-m", "--model", required=True, help="UAI model file")
+    s.add_argument("-s", "--sampler", default="simple",
+                   choices=["simple", "collapsed", "adaptive"])
+    s.add_argument("-d", "--evidence", action="store_true",
+                   help="apply evidence from <model>.evid")
+    s.add_argument("-o", "--solution", action="store_true",
+                   help="score against <model>.MAR (and .merlin.MAR if present)")
+    s.add_argument("-b", "--burnin", type=int, default=-1,
+                   help="burn-in in single-site samples (<0: 2000*vars)")
+    s.add_argument("-w", "--cwin", type=int, default=0,
+                   help="convergence window in samples (<=0: burnin)")
+    s.add_argument("-c", "--chains", type=int, default=0,
+                   help="logical chains / variant slots (<=0: 2)")
+    s.add_argument("--vchains", type=int, default=64,
+                   help="micro-chains per logical chain (the batch axis)")
+    s.add_argument("-i", "--maxiters", type=int, default=0,
+                   help="max site samples (0: unlimited)")
+    s.add_argument("-x", "--maxsecs", type=float, default=300.0,
+                   help="max runtime seconds")
+    s.add_argument("--budget", default="sampling", choices=("sampling", "wall"),
+                   help="maxsecs bounds sampling time (kernel build and first"
+                        " launch excluded) or literal wall clock (the"
+                        " reference --maxsecs contract)")
+    s.add_argument("-p", "--experiment", action="store_true",
+                   help="experiment mode: CSV time series into the trace file")
+    s.add_argument("--addr", default="", help="monitor HTTP address, e.g. :8000")
+    s.add_argument("--anneal", type=int, default=20, metavar="STAGES",
+                   help="tempered burn-in stages (0 = plain uniform-init "
+                        "burn, the reference behavior)")
+    s.add_argument("--mar-out", default="", help="write final MAR solution to file")
+    s.add_argument("--checkpoint", default="", help="(not ported: ROADMAP.md A10)")
+    s.add_argument("--resume", action="store_true", help="(not ported: ROADMAP.md A10)")
+    s.add_argument("--mesh", default="off", help="(not ported: ROADMAP.md A11)")
+    s.add_argument("--distributed", action="store_true",
+                   help="(not ported: ROADMAP.md A11)")
+
+    for name, item in (("collapse", "A8"), ("dot", "A12")):
+        c = sub.add_parser(name, help=f"(not ported: ROADMAP.md {item})",
+                           parents=[common])
+        c.add_argument("-m", "--model", required=True)
+        c.add_argument("-d", "--evidence", action="store_true")
+    return p
+
+
+def cmd_sample(args) -> int:
+    for flag, item, given in (
+        ("--checkpoint", "A10", bool(args.checkpoint)),
+        ("--resume", "A10", args.resume),
+        ("--mesh", "A11", args.mesh not in ("", "off")),
+        ("--distributed", "A11", args.distributed),
+    ):
+        if given:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
+
+    from grample_tpu_torch.monitor import Monitor
+    from grample_tpu_torch.sampler.engine import Engine, EngineConfig
+
+    cfg = EngineConfig(
+        model_path=args.model,
+        device=args.device,
+        use_evidence=args.evidence,
+        use_solution=args.solution,
+        sampler=args.sampler,
+        burnin=args.burnin,
+        converge_window=args.cwin,
+        chains=args.chains,
+        chains_per_variant=args.vchains,
+        max_iters=args.maxiters,
+        max_secs=args.maxsecs,
+        budget=args.budget,
+        seed=args.seed,
+        anneal_stages=args.anneal,
+        trace_path=args.trace,
+        experiment=args.experiment,
+        verbose=args.verbose,
+        mar_out=args.mar_out,
+    )
+    engine = Engine(cfg)  # refuses unported samplers before any work
+    monitor = None
+    if args.addr:
+        monitor = Monitor(args.addr)
+        monitor.start()
+        print(f"monitor listening on :{monitor.port}/debug/vars")
+    engine.monitor = monitor
+    try:
+        engine.run()
+    finally:
+        if monitor:
+            monitor.stop()
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command == "sample":
+        return cmd_sample(args)
+    item = {"collapse": "A8", "dot": "A12"}[args.command]
+    raise NotImplementedError(
+        f"the {args.command!r} command is not ported yet (ROADMAP.md {item})")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

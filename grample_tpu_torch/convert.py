@@ -1,0 +1,37 @@
+"""Carry the JAX package's state across to the port.
+
+The two packages share their layouts at their public functions, so the
+tests can feed one encoding and one chain state to both:
+
+  - ``encoding_from_reference``: the reference's ``EncodedModel.arrays()``
+    (one variant) or ``stack_variants`` output (leading axis N), numpy,
+    to the port's kernel-order sweep tensors.  ``sw_wbase`` (the TPU's
+    base-matmul constants) has no counterpart and is dropped.
+  - ``chains_from_reference``: the reference's ``[N, C, V+1]`` int32
+    state and ``[N, 2, C, V+1, K]`` float32 window halves to the port's
+    int32 tensors (the halves hold exact counts).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from grample_tpu_torch.ops.sweep import sweep_tensors
+
+
+def encoding_from_reference(arrays: dict, device) -> dict:
+    """Reference encoding arrays -> the port's sweep tensors on ``device``."""
+    stack = {k: np.asarray(v) for k, v in arrays.items() if k != "sw_wbase"}
+    if stack["old_of_new"].ndim == 1:  # one variant: add the stack axis
+        stack = {k: v[None] for k, v in stack.items()}
+    return sweep_tensors(stack, device)
+
+
+def chains_from_reference(state, halves, device) -> tuple:
+    """Reference chain state and window halves -> port tensors."""
+    halves = np.asarray(halves)
+    if not np.array_equal(halves, np.round(halves)):
+        raise ValueError("window halves must hold whole counts")
+    return (torch.as_tensor(np.asarray(state, dtype=np.int32), device=device),
+            torch.as_tensor(halves.astype(np.int32), device=device))

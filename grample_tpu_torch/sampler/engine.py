@@ -1,0 +1,422 @@
+"""Run orchestration for plain chromatic Gibbs (``sample -s simple``).
+
+Counterpart of ``grample_tpu.sampler.engine`` (reference
+``cmd/root.go:309-719``): load model + evidence + solutions, build the
+chain group, burn in, then loop advance → score under time/iteration
+budgets, and emit the final report, trace records and MAR output.
+
+Reference flag units are single-site samples; the engine works in
+*sweeps* (one sweep resamples every free variable once): ``burnin``
+samples ≈ ``burnin / V`` sweeps, and the default burnin 2000·V gives
+2000 sweeps.
+
+Collapsed and adaptive sampling, device meshes, multi-process runs and
+checkpoints are later slices of the port (ROADMAP.md A8–A11); asking for
+them raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from grample_tpu_torch.metrics import ErrorSuite, error_suite
+from grample_tpu_torch.metrics.divergences import pad_marginals
+from grample_tpu_torch.pgm.discrete import DiscreteModel, norm_marginals
+from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.uai import load_model, read_mar_file
+
+#: Max seconds of batched device work per engine tick (see the nwin
+#: computation): bounds the scoring cadence when status output is quiet.
+TICK_WORK_SECS = 30.0
+
+#: The ROADMAP.md item that ports each sampler this slice leaves out.
+UNPORTED_SAMPLERS = {"collapsed": "A8", "adaptive": "A9"}
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model_path: str
+    device: str = "cuda"
+    use_evidence: bool = False
+    use_solution: bool = False
+    sampler: str = "simple"  # only "simple" is ported
+    burnin: int = -1  # single-site samples; <0 → 2000·V (2000 sweeps)
+    converge_window: int = 0  # single-site samples; <=0 → burnin
+    chains: int = 0  # logical chains (variant slots); <=0 → 2
+    chains_per_variant: int = 64  # micro-chains per slot
+    max_iters: int = 0  # site updates; 0 = unlimited, <0 → 20000·V
+    max_secs: float = 300.0
+    # "sampling": max_secs bounds the clock from after the first kernel
+    # launch (build and first-launch cost excluded); "wall": the
+    # reference's literal contract, max_secs bounds wall clock from start
+    budget: str = "sampling"
+    seed: int = 0  # <1 → wall clock
+    # tempered burn-in stages (0 = plain uniform-init burn, the
+    # reference-faithful quench; see ChainGroup.burn_annealed)
+    anneal_stages: int = 20
+    trace_path: str = ""
+    experiment: bool = False
+    verbose: bool = False
+    status_secs: float = 5.0
+    mar_out: str = ""  # write final MAR solution here
+
+    def resolve_seed(self) -> int:
+        if self.seed >= 1:
+            return self.seed
+        t = time.localtime()
+        return int(t.tm_sec + t.tm_min + time.time_ns() % 1_000_000_007)
+
+
+@dataclasses.dataclass
+class RunResult:
+    marginals: np.ndarray  # [V, K] normalized final estimate
+    model: DiscreteModel
+    samples: int
+    sweeps: int
+    runtime: float
+    chains: int
+    variants: int
+    collapsed: List[int]
+    final_score: Optional[ErrorSuite] = None
+    merlin_score: Optional[ErrorSuite] = None
+    score_vs_merlin: Optional[ErrorSuite] = None
+    convergence: Optional[Dict[str, np.ndarray]] = None
+    samples_per_sec: float = 0.0
+
+
+class Engine:
+    """One marginal-estimation run."""
+
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        log: Callable[[str], None] = print,
+        monitor=None,
+    ):
+        if cfg.sampler in UNPORTED_SAMPLERS:
+            raise NotImplementedError(
+                f"sampler {cfg.sampler!r} is not ported yet (ROADMAP.md "
+                f"{UNPORTED_SAMPLERS[cfg.sampler]}); use -s simple")
+        if cfg.sampler != "simple":
+            raise ValueError(f"unknown sampler: {cfg.sampler}")
+        if cfg.budget not in ("sampling", "wall"):
+            raise ValueError(f"unknown budget mode {cfg.budget!r}")
+        if cfg.experiment and not cfg.trace_path:
+            raise ValueError("experiment mode requires a trace file")
+        self.cfg = cfg
+        self.log = log
+        self.monitor = monitor
+        self.trace_fh = None
+        if cfg.trace_path:
+            self.trace_fh = open(cfg.trace_path, "w")
+
+    def trace(self, line: str):
+        if self.trace_fh:
+            self.trace_fh.write(line + "\n")
+            self.trace_fh.flush()
+
+    # ------------------------------------------------------------------
+    def run(self) -> RunResult:
+        try:
+            return self._run()
+        finally:
+            if self.trace_fh:
+                self.trace_fh.close()
+                self.trace_fh = None
+
+    def _run(self) -> RunResult:
+        cfg = self.cfg
+        t_start = time.time()
+
+        self.log(f"Reading model from {cfg.model_path}")
+        model = load_model(cfg.model_path, use_evidence=cfg.use_evidence)
+        v = model.num_vars
+        self.log(f"Model has {v} vars and {len(model.factors)} functions")
+
+        solution = None
+        merlin = None
+        if cfg.use_solution:
+            solution = pad_marginals(read_mar_file(cfg.model_path + ".MAR"), model.cards)
+            start = error_suite(model.marginals, solution, model.cards, model.fixed, None)
+            self.log(f"START {start}")
+            if cfg.verbose:
+                self.log(start.report())
+            mer_path = cfg.model_path + ".merlin.MAR"
+            if os.path.exists(mer_path):
+                merlin = pad_marginals(read_mar_file(mer_path), model.cards)
+
+        # ---- derived defaults (reference cmd/root.go:344-363) ----------
+        seed = cfg.resolve_seed()
+        burn_sweeps = 2000 if cfg.burnin < 0 else max(0, math.ceil(cfg.burnin / v))
+        cw_sweeps = (
+            burn_sweeps if cfg.converge_window <= 0
+            else max(2, math.ceil(cfg.converge_window / v))
+        )
+        cw_sweeps = max(2, cw_sweeps)
+        n_slots = max(1, cfg.chains if cfg.chains > 0 else 2)
+        # negative maxiters derives 20000·|vars|; 0 means unlimited
+        max_iters = 20000 * v if cfg.max_iters < 0 else cfg.max_iters
+
+        self.log(
+            f"sampler={cfg.sampler} seed={seed} burnin={burn_sweeps} sweeps "
+            f"cwin={cw_sweeps} sweeps chains={n_slots}x{cfg.chains_per_variant} "
+            f"maxsecs={cfg.max_secs} maxiters={max_iters} device={cfg.device}"
+        )
+
+        group = ChainGroup(
+            model, chains_per_variant=cfg.chains_per_variant,
+            converge_window=cw_sweeps, device=cfg.device, seed=seed,
+        )
+        self.log(f"Creating chains and performing burn-in ({burn_sweeps} sweeps)")
+        group.reserve(n_slots)
+        group.add_variants([model] * n_slots)
+        group.warmup()  # wall mode: the first launch runs ON the clock
+        t_clock = t_start if cfg.budget == "wall" else time.time()
+        if cfg.anneal_stages > 0:
+            group.burn_annealed(burn_sweeps, cfg.anneal_stages)
+        else:
+            group.burn(burn_sweeps)
+
+        if self.monitor:
+            self.monitor.update(
+                burnin=burn_sweeps, cwin=cw_sweeps, chains=group.num_chains,
+                variants=group.num_variants, maxsecs=cfg.max_secs,
+            )
+
+        if cfg.experiment:
+            self.trace("// EXPERIMENT RESULTS")
+            self.trace("RunSecs, MaxHell, NegLogMaxHell, MaxJS, NegLogMaxJS, CollapseCount")
+
+        # ---- main loop --------------------------------------------------
+        # budgets anchor at t_clock (burn-in included, as the reference)
+        stop_time = t_clock + max(0.0, cfg.max_secs)
+        next_status = t_clock + cfg.status_secs / 2
+        keep_working = True
+        score = None
+        win_time = None  # EMA: measured seconds per counted window
+        while keep_working:
+            # Launch a BATCH of windows with deferred count deltas (no host
+            # sync between windows), sized so one batch ≈ the status
+            # cadence (the reference's ~5 s scoring loop,
+            # cmd/root.go:498-539).
+            if win_time is None:
+                nwin = 1
+            else:
+                budget = min(cfg.status_secs, TICK_WORK_SECS,
+                             max(stop_time - time.time(), 0.25))
+                nwin = max(1, min(1024, int(budget / max(win_time, 1e-4))))
+            t_w0 = time.time()
+            for _ in range(nwin):
+                group.advance(cw_sweeps, defer=True)
+            group.flush()
+            dt = (time.time() - t_w0) / nwin
+            win_time = dt if win_time is None else 0.5 * win_time + 0.5 * dt
+            now = time.time()
+            if cfg.max_secs > 0 and now > stop_time:
+                keep_working = False
+            if max_iters > 0 and group.total_samples > max_iters:
+                keep_working = False
+
+            if now > next_status or not keep_working or cfg.experiment:
+                runtime = now - t_clock
+                if now > next_status or not keep_working:
+                    rate = group.total_samples / max(runtime, 1e-9)
+                    self.log(
+                        f"  Samps: {group.total_samples:>14,d} | RT {runtime:10.2f}s"
+                        f" | {rate:,.0f} samples/s | chains {group.num_chains}"
+                    )
+                if solution is not None:
+                    merged = group.merged_marginals()
+                    score = error_suite(merged, solution, model.cards, model.fixed, None)
+                    if now > next_status or not keep_working:
+                        self.log(score.report() if cfg.verbose else f"    {score}")
+                    if cfg.experiment:
+                        # CollapseCount: the plain sampler collapses nothing
+                        self.trace(
+                            f"{runtime:.1f}, {score.max_hellinger:.8f}, "
+                            f"{_neglog2(score.max_hellinger):.5f}, {score.max_js:.8f}, "
+                            f"{_neglog2(score.max_js):.5f}, 0"
+                        )
+                if self.monitor:
+                    self.monitor.update(
+                        iterations=group.total_samples, runtime=now - t_start,
+                        chains=group.num_chains, variants=group.num_variants,
+                        **(_score_vars(score) if score else {}),
+                    )
+                if now > next_status:
+                    next_status = now + cfg.status_secs
+
+        # ---- final ------------------------------------------------------
+        runtime = time.time() - t_clock
+        merged = group.merged_marginals()
+        final = norm_marginals(merged, model.cards)
+        self.log("DONE")
+
+        result = RunResult(
+            marginals=final,
+            model=model,
+            samples=group.total_samples,
+            sweeps=group.total_sweeps,
+            runtime=runtime,
+            chains=group.num_chains,
+            variants=group.num_variants,
+            collapsed=[],  # kept for the reference's trace format
+            samples_per_sec=group.total_samples / max(runtime, 1e-9),
+        )
+
+        if solution is not None:
+            result.final_score = error_suite(final, solution, model.cards, model.fixed, None)
+            self.log(f"FINAL {result.final_score}")
+            self.log(result.final_score.report())
+            if merlin is not None:
+                result.merlin_score = error_suite(merlin, solution, model.cards, model.fixed, None)
+                self.log(f"MERLIN SCORE {result.merlin_score}")
+                result.score_vs_merlin = error_suite(final, merlin, model.cards, model.fixed, None)
+                self.log(f"OUR SCORE USING MERLIN AS SOLUTION {result.score_vs_merlin}")
+
+        result.convergence = {
+            meas: group.convergence(measure=meas)
+            for meas in ("hellinger", "js", "maxabs", "meanabs")
+        }
+
+        if cfg.verbose:
+            # reference --verbose: per-variable final summaries
+            # (cmd/root.go:677-685)
+            for i in range(v):
+                kind = "EVID" if model.fixed[i] >= 0 else "est"
+                self.log(
+                    f"Variable[{i}] {model.var_name(i)} (Card:{int(model.cards[i])}, "
+                    f"{kind}) {np.round(result.marginals[i, :int(model.cards[i])], 6)}"
+                )
+
+        self._final_trace(result, solution, merlin)
+
+        if cfg.mar_out:
+            from grample_tpu_torch.uai.writer import write_mar
+
+            mars = [final[i, : model.cards[i]] for i in range(v)]
+            with open(cfg.mar_out, "w") as fh:
+                fh.write(write_mar(mars))
+            self.log(f"Wrote MAR solution to {cfg.mar_out}")
+        return result
+
+    # ------------------------------------------------------------------
+    def _final_trace(self, result: RunResult, solution, merlin):
+        """Per-variable JSON trace records (reference cmd/root.go:656-716)."""
+        if not self.trace_fh:
+            return
+        from grample_tpu_torch.metrics.divergences import (
+            hellinger,
+            js_divergence,
+            max_abs_diff,
+            mean_abs_diff,
+        )
+
+        model = result.model
+        conv = result.convergence
+        # evidence-fixed vars contribute zero to every per-var error
+        # record (reference ErrorSuite, model/error.go:44-49)
+        err = None
+        if solution is not None:
+            err = {
+                "Hell-Error": hellinger(result.marginals, solution, model.cards, model.fixed),
+                "JS-Error": js_divergence(result.marginals, solution, model.cards, model.fixed),
+                "MaxAD-Error": max_abs_diff(result.marginals, solution, model.cards, model.fixed),
+                "AvgAD-Error": mean_abs_diff(result.marginals, solution, model.cards, model.fixed),
+            }
+        mer_hell = None
+        if merlin is not None:
+            mer_hell = hellinger(result.marginals, merlin, model.cards, model.fixed)
+
+        def var_record(i: int, with_merlin: bool = False) -> dict:
+            card = int(model.cards[i])
+            rec = {
+                "ID": i,
+                "Name": model.var_name(i),
+                "Card": card,
+                "FixedVal": int(model.fixed[i]),
+                "Collapsed": bool(i in result.collapsed),
+                "Marginal": [float(x) for x in result.marginals[i, :card]],
+                "State": {
+                    "Hell-Convergence": float(conv["hellinger"][i]),
+                    "JS-Convergence": float(conv["js"][i]),
+                    "MaxAD-Convergence": float(conv["maxabs"][i]),
+                    "AvgAD-Convergence": float(conv["meanabs"][i]),
+                },
+            }
+            if solution is not None:
+                for c in range(card):
+                    rec["State"][f"SOL-MAR[{c}]"] = float(solution[i, c])
+                for name, vals in err.items():
+                    rec["State"][name] = float(vals[i])
+            if with_merlin and mer_hell is not None:
+                rec["State"]["MerlinHellError"] = float(mer_hell[i])
+            return rec
+
+        self.trace("// EVIDENCE")
+        for i in range(model.num_vars):
+            if model.fixed[i] >= 0:
+                self.trace(json.dumps(var_record(i)))
+        self.trace("// VARS (ESTIMATED)")
+        for i in range(model.num_vars):
+            if model.fixed[i] < 0:
+                self.trace(json.dumps(var_record(i)))
+        if mer_hell is not None:
+            # reference cmd/root.go:689-709: estimated vars ranked by
+            # Hellinger distance from the merlin solution
+            order = sorted(
+                (i for i in range(model.num_vars) if model.fixed[i] < 0),
+                key=lambda i: mer_hell[i],
+            )
+            self.trace("// VARS SORTED BY DIST FROM HELLINGER")
+            for i in order:
+                self.trace(json.dumps(var_record(i, with_merlin=True)))
+        self.trace("// OPERATING PARAMS")
+        self.trace(json.dumps(dataclasses.asdict(self.cfg)))
+        self.trace("// RESULT SUMMARY")
+        self.trace(
+            json.dumps(
+                {
+                    "samples": result.samples,
+                    "sweeps": result.sweeps,
+                    "runtime": result.runtime,
+                    "chains": result.chains,
+                    "variants": result.variants,
+                    "collapsed": result.collapsed,
+                    "samples_per_sec": result.samples_per_sec,
+                    "final_score": result.final_score.as_dict() if result.final_score else None,
+                }
+            )
+        )
+        # reference cmd/root.go:714-716: the whole model (factor tables
+        # excluded from JSON, matching model/model.go:28)
+        self.trace("// ENTIRE MODEL")
+        self.trace(
+            json.dumps(
+                {
+                    "Type": model.type,
+                    "Name": model.name,
+                    "Vars": [var_record(i) for i in range(model.num_vars)],
+                }
+            )
+        )
+
+
+def _neglog2(x: float) -> float:
+    return -math.log2(max(x, 1e-300))
+
+
+def _score_vars(score: ErrorSuite) -> dict:
+    return {
+        "mean_hellinger": score.mean_hellinger,
+        "max_hellinger": score.max_hellinger,
+        "mean_js": score.mean_js,
+        "max_js": score.max_js,
+    }

@@ -1,0 +1,135 @@
+"""The whole slice: ``sample -s simple`` through the port's Engine and CLI,
+held against the exact marginals and one reference Engine run."""
+
+import json
+
+import numpy as np
+import pytest
+
+import grample_tpu_torch.pgm.discrete as port_pgm
+from grample_tpu.sampler.engine import Engine as RefEngine
+from grample_tpu.sampler.engine import EngineConfig as RefEngineConfig
+from grample_tpu_torch import cli
+from grample_tpu_torch.metrics import hellinger
+from grample_tpu_torch.pgm.exact import exact_marginals
+from grample_tpu_torch.sampler.engine import Engine, EngineConfig
+from grample_tpu_torch.uai import read_mar_file
+from grample_tpu_torch.uai.writer import write_mar, write_model
+
+from tests import torch_models
+
+
+def quiet(_msg):
+    pass
+
+
+def _write_net(tmp_path, name="grid3", evidence=None):
+    """``<net>.uai`` (+ ``.evid``) and an exact ``.MAR``; returns (path,
+    exact marginals with the evidence applied)."""
+    m = torch_models.MODELS[name][0](port_pgm)
+    path = str(tmp_path / f"{name}.uai")
+    with open(path, "w") as fh:
+        fh.write(write_model(m))
+    if evidence:
+        with open(path + ".evid", "w") as fh:
+            fh.write(f"{len(evidence)} " + " ".join(f"{k} {v}" for k, v in evidence.items()))
+        m.apply_evidence(evidence)
+    truth = exact_marginals(m)
+    with open(path + ".MAR", "w") as fh:
+        fh.write(write_mar([truth[i, : m.cards[i]] for i in range(m.num_vars)]))
+    return path, truth
+
+
+def _cfg(cls, path, **kw):
+    cfg = cls(model_path=path, use_solution=True, burnin=9 * 30, converge_window=9 * 50,
+              chains=2, chains_per_variant=128, max_secs=600.0, max_iters=9 * 256 * 200,
+              seed=42, status_secs=0.5)
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def test_engine_matches_exact_and_reference(tmp_path):
+    """Port and reference Engine runs on one 3x3 ``.uai``: both within
+    5 sigma of the exact marginals and of each other."""
+    path, truth = _write_net(tmp_path)
+    port = Engine(_cfg(EngineConfig, path, device="cpu"), log=quiet).run()
+    ref = RefEngine(_cfg(RefEngineConfig, path), log=quiet).run()
+    cards = np.full(9, 2)
+    # >= 256 chains x 200 counted sweeps; 3x3 grid mixes within ~4 sweeps:
+    # n_eff >= 12800, sigma(H) ~ 1/sqrt(8 n_eff) = 3.1e-3
+    bound = 5.0 / np.sqrt(8 * 12800)
+    assert port.final_score.max_hellinger < bound
+    assert hellinger(port.marginals, truth, cards).max() < bound
+    assert hellinger(ref.marginals, truth, cards).max() < bound
+    # two independent estimates: their difference has sqrt(2) x sigma
+    assert hellinger(port.marginals, ref.marginals, cards).max() < np.sqrt(2) * bound
+    assert port.samples >= 9 * 256 * 200 and port.chains == 256
+    np.testing.assert_allclose(port.marginals.sum(axis=1), 1.0, atol=1e-9)
+    assert set(port.convergence) == {"hellinger", "js", "maxabs", "meanabs"}
+
+
+def test_cli_sample_outputs(tmp_path, capsys):
+    """``sample -d -o -s simple`` with evidence, experiment CSV, trace
+    records and ``--mar-out``."""
+    path, truth = _write_net(tmp_path, "grid4_evid", {5: 1, 10: 0})
+    trace, mar = str(tmp_path / "t.jsonl"), str(tmp_path / "out.MAR")
+    rc = cli.main(["sample", "-m", path, "-d", "-o", "-s", "simple", "--device", "cpu",
+                   "--vchains", "64", "-b", "320", "-w", "640", "-i", "100000",
+                   "-e", "5", "-t", trace, "-p", "--mar-out", mar])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "FINAL" in out and "Wrote MAR solution" in out
+    est = read_mar_file(mar)
+    assert len(est) == 16
+    # evidence vars are never counted: they keep each chain's uniform
+    # seed, as in the reference's MergeChains
+    np.testing.assert_allclose(est[5], [0.5, 0.5])
+    free = [i for i in range(16) if i not in (5, 10)]
+    assert hellinger(np.array(est)[free], truth[free], np.full(14, 2)).max() < 0.05
+    text = open(trace).read()
+    for section in ("RunSecs, MaxHell", "// EVIDENCE", "// VARS (ESTIMATED)",
+                    "// OPERATING PARAMS", "// RESULT SUMMARY", "// ENTIRE MODEL"):
+        assert section in text
+    records = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    assert any(r.get("ID") == 5 and r["FixedVal"] == 1 for r in records)
+    assert records[-1]["Type"] == "MARKOV"
+
+
+@pytest.mark.parametrize("budget", ["sampling", "wall"])
+def test_maxiters_and_budget_modes(tmp_path, budget):
+    path, _ = _write_net(tmp_path)
+    cfg = _cfg(EngineConfig, path, device="cpu", max_iters=500, budget=budget,
+               chains_per_variant=32, anneal_stages=0)
+    res = Engine(cfg, log=quiet).run()
+    # stops at the iteration cap: one window (2 x 32 chains x 50 sweeps x
+    # 9 vars) is already past 500 samples
+    assert res.samples == 2 * 32 * 50 * 9
+    assert res.sweeps == 30 + 50
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["-s", "collapsed"], "A8"),
+    (["-s", "adaptive"], "A9"),
+    (["--checkpoint", "ck.npz"], "A10"),
+    (["--resume"], "A10"),
+    (["--mesh", "auto"], "A11"),
+    (["--distributed"], "A11"),
+])
+def test_unported_options_raise(tmp_path, argv, item):
+    path, _ = _write_net(tmp_path)
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(["sample", "-m", path, "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("command,item", [("collapse", "A8"), ("dot", "A12")])
+def test_unported_commands_raise(tmp_path, command, item):
+    path, _ = _write_net(tmp_path)
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main([command, "-m", path])
+
+
+def test_experiment_needs_trace(tmp_path):
+    path, _ = _write_net(tmp_path)
+    with pytest.raises(ValueError, match="trace"):
+        Engine(_cfg(EngineConfig, path, device="cpu", experiment=True))

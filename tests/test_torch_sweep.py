@@ -1,0 +1,173 @@
+"""The port's sweep against the reference Pallas kernel (interpret mode on
+the CPU), and its gate.  The CUDA kernel's own tests are in
+``tests/test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import grample_tpu.pgm.discrete as ref_pgm
+import grample_tpu.pgm.encode as ref_encode
+import grample_tpu_torch.pgm.discrete as port_pgm
+import grample_tpu_torch.pgm.encode as port_encode
+from grample_tpu.ops.gibbs_pallas import _hash_uniform, advance_chains_pallas, pal_bank_dims, pallas_stack
+from grample_tpu_torch.convert import chains_from_reference, encoding_from_reference
+from grample_tpu_torch.ops import _build, gibbs_cuda, sweep
+from grample_tpu_torch.ops.gibbs_torch import hash_uniform
+
+from tests import torch_models
+
+
+@pytest.mark.parametrize("counter", [0, 12345, 0xDEADBEEF])
+def test_hash_uniform_bit_exact(counter):
+    want = np.asarray(_hash_uniform(jnp.uint32(counter), 64, 256))
+    got = hash_uniform(counter, 64, 256).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def _ref_inputs(name, chains, seed=0):
+    """One reference encoding stacked twice, and a random initial state."""
+    m = torch_models.build(ref_pgm, name)
+    enc = ref_encode.encode_model(m, ref_encode.compute_caps(m, headroom_factors=0))
+    encs = [enc, enc]
+    rng = np.random.default_rng(seed)
+    v1 = m.num_vars + 1
+    draw = np.floor(rng.random((2, chains, v1)) * enc.cards).astype(np.int32)
+    state = np.where(enc.fixed >= 0, enc.fixed, draw).astype(np.int32)
+    return m, encs, state
+
+
+@pytest.mark.parametrize("name,sweeps,count", [
+    ("grid3", 1, False),
+    ("grid3", 2, True),
+    ("grid3_card3_evid", 2, True),
+    ("rand8_card4", 1, True),
+])
+def test_window_matches_pallas_kernel(name, sweeps, count):
+    """Same encoding, state, int32 seed and hash width ``cb`` through the
+    reference kernel (interpret mode) and the port: at least 99.9 % of
+    sites agree (a draw on a CDF boundary may flip with ``exp``'s last
+    bit), counts agree wherever the states agree, evidence stays."""
+    m, encs, state = _ref_inputs(name, chains=256)
+    dims = pal_bank_dims(encs)
+    pal = {k: jnp.asarray(v) for k, v in pallas_stack(encs, dims).items()}
+    kdim = encs[0].caps.max_card
+    halves = np.zeros((2, 2, 256, m.num_vars + 1, kdim), np.float32)
+    key = jax.random.key(7)
+    seed = int(jax.random.bits(key, dtype=jnp.uint32).astype(jnp.int32))
+    ref_state, ref_halves = advance_chains_pallas(
+        pal, jnp.asarray(state), jnp.asarray(halves), key, sweeps, sweeps // 2,
+        count=count, cb=128, dims=dims)
+    ref_state, ref_halves = np.asarray(ref_state), np.asarray(ref_halves)
+
+    kst = encoding_from_reference(ref_encode.stack_variants(encs), "cpu")
+    st, hv = chains_from_reference(state, halves, "cpu")
+    got_state, got_halves = sweep.advance_chains(
+        kst, st, hv, seed, sweeps, sweeps // 2, count=count, cb=128)
+    got_state, got_halves = got_state.numpy(), got_halves.numpy()
+
+    free = m.free_mask
+    agree = got_state[:, :, :-1] == ref_state[:, :, :-1]
+    assert agree[:, :, free].mean() >= 0.999
+    fixed = m.fixed >= 0
+    np.testing.assert_array_equal(got_state[:, :, :-1][:, :, fixed], state[:, :, :-1][:, :, fixed])
+    np.testing.assert_array_equal(got_state[:, :, -1], 0)  # sentinel
+    same = agree.all(axis=0)  # [C, V]: sites equal in both variants
+    np.testing.assert_array_equal(
+        got_halves[:, :, :, :-1][:, :, same], ref_halves[:, :, :, :-1][:, :, same])
+    total = got_halves.sum()
+    assert total == (sweeps * 2 * 256 * int(free.sum()) if count else 0)
+
+
+def test_advance_chains_multi_block_layout():
+    """Chains in several hash blocks, split halves and an evidence var:
+    every counted site lands in its half, evidence is never counted."""
+    m = torch_models.build(port_pgm, "grid4_evid")
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc] * 3), "cpu")
+    rng = np.random.default_rng(1)
+    c, v1 = 96, m.num_vars + 1
+    state = np.where(enc.fixed >= 0, enc.fixed, rng.integers(0, 2, (3, c, v1))).astype(np.int32)
+    halves = torch.zeros((3, 2, c, v1, 2), dtype=torch.int32)
+    st, hv = sweep.advance_chains(kst, torch.as_tensor(state), halves, -5, 5, 2,
+                                  count=True, cb=32)
+    hv = hv.numpy()
+    free = m.free_mask
+    # every (variant, chain, free var) counted once per sweep: 2 + 3 sweeps
+    np.testing.assert_array_equal(hv[:, 0, :, :-1][:, :, free].sum(axis=-1), 2)
+    np.testing.assert_array_equal(hv[:, 1, :, :-1][:, :, free].sum(axis=-1), 3)
+    assert hv[:, :, :, :-1][:, :, :, ~free].sum() == 0
+    np.testing.assert_array_equal(st.numpy()[:, :, :-1][:, :, ~free],
+                                  state[:, :, :-1][:, :, ~free])
+    assert st.dtype == torch.int32 and st.shape == (3, c, v1)
+
+
+def _caps_of(name, **kw):
+    m = torch_models.build(port_pgm, name)
+    return port_encode.compute_caps(m, **kw)
+
+
+@pytest.mark.parametrize("case", ["gather_bank", "card17", "rows"])
+def test_gate_refuses(case):
+    """The sweep refuses what its kernel does not take, with a reason."""
+    import dataclasses
+
+    caps = _caps_of("rand6")
+    sweep.check_supported(caps)
+    bad = {
+        "gather_bank": dataclasses.replace(caps, gfac_cap=1),
+        "card17": dataclasses.replace(caps, max_card=17),
+        "rows": dataclasses.replace(caps, tail_cap=8000),
+    }[case]
+    with pytest.raises(ValueError, match="gather bank|max card|shared memory"):
+        sweep.check_supported(bad)
+
+
+def test_gate_refuses_gather_model():
+    """A real model whose encoding needs the gather bank is refused by the
+    chain runtime before any sweep runs."""
+    from grample_tpu_torch.sampler.chains import ChainGroup
+
+    rng = np.random.default_rng(0)
+    v = 12
+    big = port_pgm.Factor("big", np.arange(v), rng.random(2**v) + 0.1)
+    unary = [port_pgm.Factor(f"u{i}", [i], rng.random(2) + 0.1) for i in range(v)]
+    m = port_pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=[big] + unary)
+    caps = port_encode.compute_caps(m, headroom_factors=0, oa_dense_cap=32,
+                                    slot_hint=1 << 40)
+    assert caps.gfac_cap > 0
+    with pytest.raises(ValueError, match="gather bank"):
+        ChainGroup(m, 8, 4, device="cpu", caps=caps)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper never runs the plain version: CPU tensors are
+    refused before anything is built or launched."""
+    m = torch_models.build(port_pgm, "grid3")
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc]), "cpu")
+    state = torch.zeros((1, enc.caps.num_rows, 8), dtype=torch.int32)
+    before = gibbs_cuda.gibbs_window.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gibbs_cuda.gibbs_window(*[kst[k] for k in sweep.KERNEL_KEYS], state, 0, 1, 0, True, 8)
+    assert gibbs_cuda.gibbs_window.launches == before
+    with pytest.raises(ValueError, match="no sweep for device"):
+        sweep.window(kst, state.to("meta"), 0, 1, 0, True, 8)
+
+
+def test_build_library_path_tracks_sources():
+    path = _build.library_path()
+    assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
+    assert path == _build.library_path()
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_hash_block():
+    assert sweep.hash_block(131072) == 1024
+    assert sweep.hash_block(128) == 128
+    assert sweep.hash_block(96) == 32
+
