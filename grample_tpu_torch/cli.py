@@ -1,21 +1,24 @@
-"""Command-line interface: the ``sample`` command for ``-s simple``.
+"""Command-line interface: ``sample`` (``-s simple`` and ``-s collapsed``)
+and ``collapse``.
 
 Mirrors ``grample_tpu.cli`` (reference ``cmd/root.go:163-250``) with the
 same flags and derived defaults, on a PyTorch device:
 
     python -m grample_tpu_torch.cli sample -m net.uai -d -o -s simple
+    python -m grample_tpu_torch.cli sample -m net.uai -d -o -s collapsed -c 8 --vchains 32768
     python -m grample_tpu_torch.cli sample -m net.uai -o --device cpu
+    python -m grample_tpu_torch.cli collapse -m net.uai
 
 The parts of the reference CLI that later slices port raise
-``NotImplementedError`` naming their ROADMAP.md item: ``-s collapsed``
-and ``-s adaptive`` (A8, A9), ``--checkpoint``/``--resume`` (A10),
-``--mesh``/``--distributed`` (A11), and the ``collapse`` (A8) and ``dot``
-(A12) subcommands.
+``NotImplementedError`` naming their ROADMAP.md item: ``-s adaptive``
+(A9), ``--checkpoint``/``--resume`` (A10), ``--mesh``/``--distributed``
+(A11) and the ``dot`` subcommand (A12).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -63,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--anneal", type=int, default=20, metavar="STAGES",
                    help="tempered burn-in stages (0 = plain uniform-init "
                         "burn, the reference behavior)")
+    s.add_argument("--no-rb-mixture", action="store_true",
+                   help="freeze collapsed-var marginals at collapse time "
+                        "(reference behavior) instead of the RB mixture")
     s.add_argument("--mar-out", default="", help="write final MAR solution to file")
     s.add_argument("--checkpoint", default="", help="(not ported: ROADMAP.md A10)")
     s.add_argument("--resume", action="store_true", help="(not ported: ROADMAP.md A10)")
@@ -70,11 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--distributed", action="store_true",
                    help="(not ported: ROADMAP.md A11)")
 
-    for name, item in (("collapse", "A8"), ("dot", "A12")):
-        c = sub.add_parser(name, help=f"(not ported: ROADMAP.md {item})",
-                           parents=[common])
-        c.add_argument("-m", "--model", required=True)
-        c.add_argument("-d", "--evidence", action="store_true")
+    c = sub.add_parser("collapse", parents=[common],
+                       help="per-variable exact-collapse validation vs <model>.MAR")
+    c.add_argument("-m", "--model", required=True)
+    # evidence always applies, as in the reference (its flag defaults on)
+    c.add_argument("-d", "--evidence", action="store_true", default=True)
+    d = sub.add_parser("dot", help="(not ported: ROADMAP.md A12)", parents=[common])
+    d.add_argument("-m", "--model", required=True)
+    d.add_argument("-d", "--evidence", action="store_true")
     return p
 
 
@@ -106,6 +115,7 @@ def cmd_sample(args) -> int:
         budget=args.budget,
         seed=args.seed,
         anneal_stages=args.anneal,
+        rb_mixture=not args.no_rb_mixture,
         trace_path=args.trace,
         experiment=args.experiment,
         verbose=args.verbose,
@@ -126,13 +136,56 @@ def cmd_sample(args) -> int:
     return 0
 
 
+def cmd_collapse(args) -> int:
+    """Per-variable exact-collapse validation (reference cmd/collapse.go;
+    the same lines as ``grample_tpu.cli.cmd_collapse``)."""
+    import numpy as np
+
+    from grample_tpu_torch.metrics import error_suite
+    from grample_tpu_torch.metrics.divergences import pad_marginals
+    from grample_tpu_torch.sampler.collapse import collapse_var, is_collapsible
+    from grample_tpu_torch.uai import load_model, read_mar_file
+
+    model = load_model(args.model, use_evidence=args.evidence)
+    sol = pad_marginals(read_mar_file(args.model + ".MAR"), model.cards)
+    merlin = None
+    mp = args.model + ".merlin.MAR"
+    if os.path.exists(mp):
+        merlin = pad_marginals(read_mar_file(mp), model.cards)
+
+    blankets = model.blankets()
+    for i in range(model.num_vars):
+        if model.fixed[i] >= 0:
+            continue
+        if not is_collapsible(model, i, blankets[i]):
+            print(f"Var[{i}] {model.var_name(i)}: SKIPPED (blanket {len(blankets[i])})")
+            continue
+        _, exact = collapse_var(model, i)
+        card = int(model.cards[i])
+        est = np.zeros((model.num_vars, model.marginals.shape[1]))
+        est[i, :card] = exact
+        one = np.array([i])
+        col_vs_sol = error_suite(est[one], sol[one], model.cards[one])
+        print(f"Var[{i}] {model.var_name(i)} (card {card}, blanket {len(blankets[i])})")
+        print(f"  collapsed: {np.round(exact, 6)}")
+        print(f"  solution : {np.round(sol[i, :card], 6)}")
+        print(f"  Col vs Sol: Hell={col_vs_sol.max_hellinger:.6f} JS={col_vs_sol.max_js:.6f}")
+        if merlin is not None:
+            mer_vs_sol = error_suite(merlin[one], sol[one], model.cards[one])
+            mer_vs_col = error_suite(merlin[one], est[one], model.cards[one])
+            print(f"  Mer vs Sol: Hell={mer_vs_sol.max_hellinger:.6f}"
+                  f"  Mer vs Col: Hell={mer_vs_col.max_hellinger:.6f}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "sample":
         return cmd_sample(args)
-    item = {"collapse": "A8", "dot": "A12"}[args.command]
+    if args.command == "collapse":
+        return cmd_collapse(args)
     raise NotImplementedError(
-        f"the {args.command!r} command is not ported yet (ROADMAP.md {item})")
+        f"the {args.command!r} command is not ported yet (ROADMAP.md A12)")
 
 
 if __name__ == "__main__":

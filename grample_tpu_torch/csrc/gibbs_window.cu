@@ -1,7 +1,12 @@
 // Whole-window chromatic Gibbs sweep for Hopper (sm_90a).
 //
 // Replaces grample_tpu/ops/gibbs_pallas.py::_make_kernel (launched by
-// _pallas_window), the reference's only TPU kernel, in its plain form.
+// _pallas_window), the reference's only TPU kernel, in both of its forms:
+// the plain form (local tables of at most 32 rows, an unrolled select
+// chain) and the wide-OA form (33 to 256 rows, a counted-loop lookup,
+// gibbs_pallas.py:355-367).  Here one code path serves every width: the
+// table row is indexed directly, t = tb + (fi * oa + base) * k, so `oa` is
+// a run-time argument and only the bytes read per incidence grow with it.
 // It computes the same window: for each sweep and color, every site's
 // local-table log-conditional summed over its incidences, masked to the
 // card, max-shifted exp, the 1e-6 * total floor, and one counter-hashed
@@ -26,6 +31,15 @@
 // neighbour states, and one expf per (site, outcome).  Making it fast
 // (counts held in registers or shared memory, tables staged in shared
 // memory, several chains per thread) is later work.
+//
+// Wide tables (collapse variants) change the limits, not the code: their
+// stacks have more state rows (NVp near 3100 on a 916-var Promedus-shaped
+// net against about 1500 for its plain caps), so the uint8 state of a
+// 64-thread block fills most of the SM's shared memory and one block runs
+// per SM; their scopes reach 9-11 vars, so each incidence costs that many
+// shared-memory reads; and a row of a 256-row local table is a scattered
+// 8-byte read from tables that no longer fit L2 (44 MB per variant).
+// gibbs_window_occupancy reports the blocks per SM that a launch gets.
 //
 // Float arithmetic uses the _rn intrinsics so that the compiler does not
 // contract a*b+c into an FMA: the draw then rounds as the plain version
@@ -187,7 +201,37 @@ cudaError_t launch_k(bool count, const int32_t* k_scope, const int32_t* k_stride
                              half_point, cb, threads, stream);
 }
 
+template <int KMAX, bool COUNT>
+cudaError_t occupancy(int threads, size_t smem, int* blocks) {
+  auto kern = gibbs_window_kernel<KMAX, COUNT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+}
+
+template <int KMAX>
+cudaError_t occupancy_k(bool count, int threads, size_t smem, int* blocks) {
+  return count ? occupancy<KMAX, true>(threads, smem, blocks)
+               : occupancy<KMAX, false>(threads, smem, blocks);
+}
+
 }  // namespace
+
+// Resident blocks per SM for a launch of `threads` threads over `nvp` state
+// rows at card bound k (the same template instance gibbs_window_launch
+// picks).  Returns a cudaError_t; 1000 = card above 16.
+extern "C" int gibbs_window_occupancy(int k, int count, int threads, int nvp,
+                                      void* blocks) {
+  const size_t smem = static_cast<size_t>(nvp) * threads;
+  auto* out = static_cast<int*>(blocks);
+  const bool cnt = count != 0;
+  if (k <= 2) return occupancy_k<2>(cnt, threads, smem, out);
+  if (k <= 4) return occupancy_k<4>(cnt, threads, smem, out);
+  if (k <= 8) return occupancy_k<8>(cnt, threads, smem, out);
+  if (k <= 16) return occupancy_k<16>(cnt, threads, smem, out);
+  return 1000;
+}
 
 // C entry point, bound with ctypes.  Returns a cudaError_t (0 = success);
 // 1000 = card above 16 (the wrapper's gate refuses it first).

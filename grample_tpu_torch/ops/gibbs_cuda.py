@@ -37,7 +37,25 @@ def _lib() -> ctypes.CDLL:
     fn = lib.gibbs_window_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    occ = lib.gibbs_window_occupancy
+    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
     return lib
+
+
+def occupancy(k: int, count: bool, nvp: int) -> tuple:
+    """(threads per block, resident blocks per SM) of a window launch over
+    ``nvp`` state rows at max card ``k``, as the CUDA runtime reports it
+    for the current device."""
+    threads = pick_threads(nvp)
+    if threads == 0 or k > MAX_CARD:
+        raise ValueError(f"no launch for nvp={nvp} k={k}")
+    blocks = ctypes.c_int(0)
+    err = _lib().gibbs_window_occupancy(int(k), int(bool(count)), threads, int(nvp),
+                                        ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"gibbs_window_occupancy failed: CUDA error {err}")
+    return threads, blocks.value
 
 
 def gibbs_window(k_scope, k_strides, k_tables, k_kmask, state, seed: int,

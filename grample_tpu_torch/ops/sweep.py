@@ -9,8 +9,18 @@ slot counts ``[N, 2, K, NSLOT, C]`` onto the split-half window tensor
 The window runs the CUDA kernel (``ops.gibbs_cuda``) for CUDA tensors and
 its plain PyTorch version (``ops.gibbs_torch``) for CPU tensors; a CUDA
 tensor never takes the plain path.  ``check_supported`` is the gate: the
-sweep takes the dense local-table bank only, cards up to 16, and state
-that fits the kernel's shared memory.
+sweep takes the dense local-table bank only, local tables of at most
+``OA_MAX`` rows, cards up to 16, and state that fits the kernel's shared
+memory.
+
+One code path serves every table width.  The reference kernel has two
+lookup forms (an unrolled select chain up to 32 rows, a counted loop up
+to ``PAL_OA_MAX`` = 256, ``gibbs_pallas.py:347-367``) and stops at 256
+because its bf16 base matmul is exact only that far (``:219-221``); the
+port reads row ``base`` of the local table directly, so its bound is the
+encoder's: ``BASE_DENSE_LIMIT`` = 1024 rows, the widest incidence
+``compute_caps`` keeps dense.  The collapsed sampler's own 256 bound is
+``pgm.encode.COLLAPSE_OA_DENSE_CAP``, applied by ``is_collapsible``.
 """
 
 from __future__ import annotations
@@ -22,12 +32,16 @@ import torch.nn.functional as fnn
 from grample_tpu_torch.ops import gibbs_cuda
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.ops.layout import kernel_stack
+from grample_tpu_torch.pgm.encode import BASE_DENSE_LIMIT
 
 #: hash lane width (the reference kernel's chain block ``cb``) used when a
 #: group's chains-per-variant allows it (see ``hash_block``)
 HASH_CB = 1024
 
 KERNEL_KEYS = ("k_scope", "k_strides", "k_tables", "k_kmask")
+
+#: widest local table (rows) the sweep takes: see the module doc
+OA_MAX = BASE_DENSE_LIMIT
 
 
 def check_supported(caps) -> None:
@@ -37,6 +51,9 @@ def check_supported(caps) -> None:
             f"encoding uses the gather bank (gfac_cap={caps.gfac_cap}): the "
             "sweep takes dense local tables only (incidences of at most "
             f"{caps.oa_dense_cap} local rows)")
+    if caps.oa_cap > OA_MAX:
+        raise ValueError(f"local tables of {caps.oa_cap} rows exceed the "
+                         f"sweep's {OA_MAX}")
     if caps.max_card > gibbs_cuda.MAX_CARD:
         raise ValueError(f"max card {caps.max_card} > {gibbs_cuda.MAX_CARD}: "
                          "not taken by the sweep kernel")

@@ -25,7 +25,9 @@ classified by the factor's *local* table size OA = table_size / card(var):
   - **gather bank** ``gb_*`` (larger incidences): indexes the flat
     ``tables`` array directly.  Encoded for parity with the reference;
     the port's sweep refuses encodings that use it
-    (``ops.sweep.check_supported``).
+    (``ops.sweep.check_supported``).  Collapse variants never use it:
+    ``caps_for_variants`` raises the dense threshold to their widest
+    incidence, which the collapse guard bounds.
 
 **Color-contiguous renumbering.**  The sweep operates on a permuted
 variable space in which each chromatic group's variables occupy a
@@ -393,6 +395,39 @@ def merge_caps(a: EncodeCaps, b: EncodeCaps) -> EncodeCaps:
         base_mode=max(a.base_mode, b.base_mode, key=_MODE_RANK.__getitem__),
         oa_dense_cap=max(a.oa_dense_cap, b.oa_dense_cap),
     )
+
+
+def caps_for_variants(
+    models, slot_hint: int = 1, oa_dense_cap: int = 0
+) -> EncodeCaps:
+    """Exact merged capacities over a KNOWN variant list (no headroom).
+
+    The collapsed sampler builds its whole variant set before the first
+    sweep, so it measures the variants instead of estimating collapse
+    headroom.  ``oa_dense_cap`` defaults to the largest actual incidence
+    (at least ``OA_DENSE_CAP``); the per-variant guard
+    ``is_collapsible(oa_cap=COLLAPSE_OA_DENSE_CAP)`` bounds it upstream.
+    """
+    if not models:
+        raise ValueError("caps_for_variants: empty variant list")
+    if oa_dense_cap <= 0:
+        oa_dense_cap = max(
+            max(
+                (int(f.table.size) // int(mv.cards[int(u)])
+                 for f in mv.factors for u in f.scope),
+                default=1,
+            )
+            for mv in models
+        )
+        oa_dense_cap = max(oa_dense_cap, OA_DENSE_CAP)
+    caps = None
+    for mv in models:
+        c = compute_caps(
+            mv, headroom_factors=0, slot_hint=slot_hint,
+            oa_dense_cap=oa_dense_cap,
+        )
+        caps = c if caps is None else merge_caps(caps, c)
+    return caps
 
 
 def encode_model(

@@ -1,20 +1,25 @@
 """Chain runtime: batched chains over stacked model variants, in torch.
 
-Counterpart of ``grample_tpu.sampler.chains.ChainGroup``, plain subset.
-One sweep launch advances every chain of every active variant at once:
+Counterpart of ``grample_tpu.sampler.chains.ChainGroup``.  One sweep
+launch advances every chain of every active variant at once:
 
-  - variant slot axis  [N]: distinct factor graphs (logical chains),
+  - variant slot axis  [N]: distinct factor graphs (the base model, or a
+    collapse variant: the reference's "chain"),
   - micro-chain axis   [C]: independent chains per variant,
 
 with state ``[N, C, V+1]`` int32 and split-half window counts
 ``[N, 2, C, V+1, K]`` int32 resident on ``device``.  Slot capacity grows
-in powers of two.
+in powers of two; caps grow when a variant does not fit them.
 
-``merged_marginals`` is the reference's ``MergeChains`` for plain chains:
-every chain contributes its uniform-initialized marginal (1/card per
-entry) plus its counts.  Collapse variants, the Rao-Blackwell mixture,
-and the reference's TPU workarounds (slot chunking, counted sub-windows,
-the compile-error fallback) are not part of this port.
+``merged_marginals`` is the reference's ``MergeChains``: every chain
+contributes its uniform-initialized marginal (1/card per entry) plus its
+counts, and a var collapsed in any variant takes that variant's estimate
+(first collapsing slot wins): the Rao-Blackwell mixture once it has
+``RB_MIN_SNAPSHOTS`` snapshots, else the static collapse marginal.
+
+Not ported here: the split group's external donors, transplant and
+warm-marginal init (ROADMAP A9), and the reference's TPU workarounds
+(slot chunking, counted sub-windows, the compile-error fallback).
 """
 
 from __future__ import annotations
@@ -37,13 +42,36 @@ from grample_tpu_torch.pgm.encode import (
     EncodedModel,
     compute_caps,
     encode_model,
+    merge_caps,
     stack_variants,
 )
+from grample_tpu_torch.sampler.collapse import collapse_conditional
 
 MAX_VARIANTS = 128  # reference ConvergenceSampler.MaxChains (adaptive.go:49)
 
 #: Default tempered burn-in stages (see :meth:`ChainGroup.burn_annealed`).
 ANNEAL_STAGES = 20
+
+#: Snapshots an RB mixture needs before it replaces the static collapse
+#: marginal in ``merged_marginals`` (reference ``chains.py:64-72``): one
+#: snapshot is a single correlated draw of the blanket distribution.
+RB_MIN_SNAPSHOTS = 2
+
+#: Per-snapshot decay of the RB mixture's running sums and weights
+#: (reference ``chains.py:74-85``): the mixture tracks the live ensemble
+#: over an effective window of about 1/(1-γ) snapshots.
+RB_DECAY = 0.85
+
+
+def _rb_indices(state, slots, rest, strides):
+    """Mixed-radix blanket indices [n, C] for the RB mixture: state
+    [N, C, V+1], slots [n], rest/strides [n, B] (sentinel-padded, stride
+    0).  One gather straight to [n, C, B], no [n, C, V+1] copy (reference
+    ``chains.py:101-114``, there an XLA program)."""
+    c = state.shape[1]
+    chains = torch.arange(c, device=state.device)
+    g = state[slots[:, None, None], chains[None, :, None], rest[:, None, :]]
+    return (g * strides[:, None, :]).sum(dim=2)
 
 
 def _next_pow2(n: int) -> int:
@@ -66,6 +94,7 @@ class ChainGroup:
         caps: Optional[EncodeCaps] = None,
         group_cap: int = 0,
         max_variants: int = MAX_VARIANTS,
+        rb_mixture: bool = True,
     ):
         base_model.check()
         self.base = base_model
@@ -97,6 +126,18 @@ class ChainGroup:
         # pairs not yet folded into ``totals`` — the engine dispatches many
         # windows without a host sync per window
         self._pending: List[tuple] = []
+        # Rao-Blackwell mixture (see rb_accumulate): conditional tables by
+        # var; decayed snapshot sums, weights and undecayed counts keyed
+        # (slot, var) for each collapsing variant's own chains, and keyed
+        # var for plain-slot donors (chain-count weighted)
+        self.rb_mixture = bool(rb_mixture)
+        self._rb_cond: dict = {}
+        self._rb_sum: dict = {}
+        self._rb_n: dict = {}
+        self._rb_count: dict = {}
+        self._rbp_sum: dict = {}
+        self._rbp_w: dict = {}
+        self._rbp_snaps: dict = {}
 
     # ---- capacity management --------------------------------------------
     @property
@@ -134,6 +175,25 @@ class ChainGroup:
         fixedv = np.asarray(enc.fixed, dtype=np.int32)
         return np.where(fixedv[None, :] >= 0, fixedv[None, :], draw)
 
+    def _encode_grown(self, model: DiscreteModel) -> tuple:
+        """``encode_model`` with caps growth; returns (enc, grew).
+
+        On growth the caps become the merge of the old caps and the
+        model's own (reference ``chains.py:320-336``), pass the sweep's
+        gate again, and every existing variant is re-encoded; the device
+        stack is NOT rebuilt here (callers restack)."""
+        try:
+            return encode_model(model, self.caps), False
+        except ValueError:
+            caps = merge_caps(
+                self.caps,
+                compute_caps(model, oa_dense_cap=self.caps.oa_dense_cap),
+            )
+            check_supported(caps)
+            self.caps = caps
+            self.encs = [encode_model(mv, self.caps) for mv in self.variants]
+            return encode_model(model, self.caps), True
+
     def reserve(self, n_slots: int):
         """Pre-size slot capacity to avoid intermediate restacks."""
         cap = _next_pow2(max(1, n_slots))
@@ -147,7 +207,8 @@ class ChainGroup:
             self.slot_cap = new_slot_cap
         if self.slot_cap == 0:
             return
-        base_enc = self.encs[0] if self.encs else encode_model(self.base, self.caps)
+        # exact variant caps need not fit the base model: grow them
+        base_enc = self.encs[0] if self.encs else self._encode_grown(self.base)[0]
         padded = list(self.encs) + [base_enc] * (self.slot_cap - len(self.encs))
         self.kstack = sweep_tensors(stack_variants(padded), self.device)
 
@@ -174,19 +235,27 @@ class ChainGroup:
         return self.add_variants([model])[0]
 
     def add_variants(self, models: List[DiscreteModel]) -> List[int]:
-        """Add variants with one device update per stack key; each must
-        encode within the group's caps."""
+        """Add variants with one device update per stack key, growing the
+        caps (and restacking) when one does not fit them."""
         if not models:
             return []
         if self.num_variants + len(models) > self.max_variants:
             raise RuntimeError(f"variant limit {self.max_variants} reached")
-        new_encs = [encode_model(mv, self.caps) for mv in models]
+        grew_any = False
+        new_encs: List[EncodedModel] = []
+        for mv in models:
+            enc, grew = self._encode_grown(mv)
+            if grew:
+                grew_any = True
+                # earlier members of this batch used the old caps
+                new_encs = [encode_model(m2, self.caps) for m2 in models[:len(new_encs)]]
+            new_encs.append(enc)
         slot0 = len(self.variants)
         slots = list(range(slot0, slot0 + len(models)))
         self.variants.extend(models)
         self.encs.extend(new_encs)
-        if slots[-1] >= self.slot_cap:
-            self._restack(_next_pow2(slots[-1] + 1))
+        if grew_any or slots[-1] >= self.slot_cap:
+            self._restack(max(self.slot_cap, _next_pow2(slots[-1] + 1)))
         else:
             fresh = sweep_tensors(stack_variants(new_encs), self.device)
             for k, v in fresh.items():
@@ -289,20 +358,145 @@ class ChainGroup:
         self._pending.clear()
 
     # ---- estimation ------------------------------------------------------
+    def rb_accumulate(self) -> None:
+        """Take one Rao-Blackwell snapshot for every collapsed var.
+
+        The true RB estimator averages the exact conditional
+        P(var | blanket) over the collapsed variant's chain states: those
+        chains sample the base joint with var integrated out, so the
+        mixture converges to the var's true marginal, where the
+        reference's static collapse-time marginal (the incident-factor
+        enumeration) does not.  Plain slots also sample every blanket and
+        donate snapshots too (reference ``chains.py:800-861``).  The
+        engine calls this once per tick; states a window apart are
+        decorrelated enough to stack like fresh samples.
+        """
+        if not self.rb_mixture:
+            return
+        v = self.caps.num_vars
+        base_col = self.base.collapsed[:v]
+        own, plain = [], []  # (slot, var) pairs collapsed in a slot; plain slots
+        col_any = np.zeros(v, dtype=bool)
+        for slot, mv in enumerate(self.variants):
+            extra = mv.collapsed[:v] & ~base_col
+            col_any |= extra
+            own.extend((slot, int(var)) for var in np.nonzero(extra)[0])
+            if not extra.any():
+                plain.append(slot)
+        if not own:
+            return
+        donors = [(p, int(cv)) for cv in np.nonzero(col_any)[0] for p in plain]
+        probs = self._rb_snapshot(own + donors)
+        for key, pr in zip(own, probs[: len(own)]):
+            if key in self._rb_sum:
+                self._rb_sum[key] = self._rb_sum[key] * RB_DECAY + pr
+                self._rb_n[key] = self._rb_n[key] * RB_DECAY + 1.0
+                self._rb_count[key] += 1
+            else:
+                self._rb_sum[key] = pr
+                self._rb_n[key] = 1.0
+                self._rb_count[key] = 1
+        per_var: dict = {}
+        for (_p, var), pr in zip(donors, probs[len(own):]):
+            per_var.setdefault(var, []).append(pr)
+        for var, prs in per_var.items():
+            # same-tick donor slots combine at equal weight: the decay
+            # applies once per tick, not between sibling slots
+            self._rbp_accum(var, np.mean(prs, axis=0), self.cpv * len(prs))
+
+    def _rbp_accum(self, var: int, probs: np.ndarray, weight: float):
+        if var in self._rbp_sum:
+            self._rbp_sum[var] = self._rbp_sum[var] * RB_DECAY + probs * weight
+            self._rbp_w[var] = self._rbp_w[var] * RB_DECAY + weight
+            self._rbp_snaps[var] += 1
+        else:
+            self._rbp_sum[var] = probs * weight
+            self._rbp_w[var] = float(weight)
+            self._rbp_snaps[var] = 1
+
+    def _rb_snapshot(self, pairs) -> List[np.ndarray]:
+        """One RB snapshot per (slot, var) pair: the normalized base
+        conditional of ``var`` averaged over that slot's chains."""
+        infos = []
+        for _slot, var in pairs:
+            if var not in self._rb_cond:
+                self._rb_cond[var] = collapse_conditional(self.base, var)
+            infos.append(self._rb_cond[var])
+        bmax = max(info[0].size for info in infos)
+        # sentinel column (var V, stride 0) pads ragged blankets
+        rest = np.full((len(pairs), bmax), self.caps.num_vars, dtype=np.int64)
+        strides = np.zeros((len(pairs), bmax), dtype=np.int64)
+        for i, (r, s, _c) in enumerate(infos):
+            rest[i, : r.size] = r
+            strides[i, : r.size] = s
+        dev = self.state.device
+        idx = _rb_indices(
+            self.state,
+            torch.as_tensor(np.array([s for s, _ in pairs]), device=dev),
+            torch.as_tensor(rest, device=dev),
+            torch.as_tensor(strides, device=dev),
+        ).cpu().numpy()
+        out = []
+        for (_r, _s, cond), row in zip(infos, idx):
+            counts = np.bincount(row, minlength=cond.shape[0]).astype(np.float64)
+            out.append(counts @ cond / counts.sum())
+        return out
+
+    def collapsed_any(self) -> np.ndarray:
+        """[V] bool: collapsed in any active variant."""
+        v = self.caps.num_vars
+        out = np.zeros(v, dtype=bool)
+        for mv in self.variants:
+            out |= mv.collapsed[:v]
+        return out
+
     def merged_marginals(self) -> np.ndarray:
-        """Merged (unnormalized) marginal estimate [V, K] float64: per
-        chain a uniform 1/card seed plus its counts, summed over chains
-        (reference MergeChains)."""
+        """Merged (unnormalized) marginal estimate [V, K] float64.
+
+        Reference MergeChains: per chain a uniform 1/card seed plus its
+        counts, summed over chains; a var collapsed in any variant takes
+        the first collapsing slot's estimate instead (reference
+        ``chains.py:945-993``): the chain-count-weighted blend of its own
+        decayed RB mixture and the plain-slot donors' once either has
+        ``RB_MIN_SNAPSHOTS`` snapshots, else the static collapse marginal.
+        Rows are on different scales; every consumer normalizes per row.
+        """
         self.flush()
         v, k = self.caps.num_vars, self.kdim
         cards = self.base.cards
         valid = np.arange(k)[None, :] < cards[:, None]
         uniform = valid / np.maximum(cards[:, None], 1)
-        return self.num_chains * uniform + self.totals[: self.num_variants, :v].sum(axis=0)
+        merged = self.num_chains * uniform + self.totals[: self.num_variants, :v].sum(axis=0)
+        seen = np.zeros(v, dtype=bool)
+        for slot, mv in enumerate(self.variants):
+            for var in np.nonzero(mv.collapsed[:v] & ~seen)[0]:
+                var_i = int(var)
+                merged[var] = 0.0
+                have_own = (self.rb_mixture and
+                            self._rb_count.get((slot, var_i), 0) >= RB_MIN_SNAPSHOTS)
+                have_plain = (self.rb_mixture and
+                              self._rbp_snaps.get(var_i, 0) >= RB_MIN_SNAPSHOTS)
+                if have_own or have_plain:
+                    num, den = 0.0, 0.0
+                    if have_own:
+                        nrb = self._rb_n[(slot, var_i)]
+                        w = nrb * self.cpv
+                        num = self._rb_sum[(slot, var_i)] / nrb * w
+                        den = w
+                    if have_plain:
+                        num = num + self._rbp_sum[var_i]
+                        den = den + self._rbp_w[var_i]
+                    est = num / den
+                    merged[var, : est.size] = est
+                else:
+                    merged[var, : mv.marginals.shape[1]] = mv.marginals[var]
+                seen[var] = True
+        return merged
 
     def convergence(self, measure: str = "hellinger",
                     merged: Optional[np.ndarray] = None) -> np.ndarray:
-        """Per-variable PSRF over all active micro-chains. Returns [V]."""
+        """Per-variable PSRF over all active micro-chains. Returns [V];
+        evidence and collapsed vars count as converged."""
         v = self.caps.num_vars
         if merged is None:
             merged = self.merged_marginals()
@@ -310,12 +504,13 @@ class ChainGroup:
         h = self.halves[:nact, :, :, :v, :]  # [Nact, 2, C, V, K]
         m_chains = nact * self.cpv
         dev = self.device
+        converged = (self.base.fixed >= 0) | self.collapsed_any()
         vals = chain_convergence(
             h[:, 0].reshape(m_chains, v, self.kdim),
             h[:, 1].reshape(m_chains, v, self.kdim),
             torch.as_tensor(merged, dtype=torch.float32, device=dev),
             torch.as_tensor(self.base.cards, dtype=torch.int32, device=dev),
-            torch.as_tensor(self.base.fixed >= 0, device=dev),
+            torch.as_tensor(converged, device=dev),
             torch.ones(m_chains, dtype=torch.bool, device=dev),
             float(self.cw),
             measure=measure,

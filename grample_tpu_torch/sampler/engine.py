@@ -1,18 +1,25 @@
-"""Run orchestration for plain chromatic Gibbs (``sample -s simple``).
+"""Run orchestration for chromatic Gibbs (``sample -s simple`` and
+``sample -s collapsed``).
 
 Counterpart of ``grample_tpu.sampler.engine`` (reference
 ``cmd/root.go:309-719``): load model + evidence + solutions, build the
-chain group, burn in, then loop advance → score under time/iteration
-budgets, and emit the final report, trace records and MAR output.
+chain group, burn in, then loop advance → RB snapshot → score under
+time/iteration budgets, and emit the final report, trace records and MAR
+output.
+
+``-s collapsed`` (the reference's random-collapse sampler) builds its
+whole variant set up front: one random collapsible var per slot (the
+same draws as the JAX package for the same seed), and caps measured on
+exactly those variants (``caps_for_variants``).
 
 Reference flag units are single-site samples; the engine works in
 *sweeps* (one sweep resamples every free variable once): ``burnin``
 samples ≈ ``burnin / V`` sweeps, and the default burnin 2000·V gives
 2000 sweeps.
 
-Collapsed and adaptive sampling, device meshes, multi-process runs and
-checkpoints are later slices of the port (ROADMAP.md A8–A11); asking for
-them raises ``NotImplementedError``.
+Adaptive sampling, device meshes, multi-process runs and checkpoints are
+later slices of the port (ROADMAP.md A9–A11); asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ import numpy as np
 from grample_tpu_torch.metrics import ErrorSuite, error_suite
 from grample_tpu_torch.metrics.divergences import pad_marginals
 from grample_tpu_torch.pgm.discrete import DiscreteModel, norm_marginals
+from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP, caps_for_variants
 from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
 from grample_tpu_torch.uai import load_model, read_mar_file
 
 #: Max seconds of batched device work per engine tick (see the nwin
@@ -37,7 +46,7 @@ from grample_tpu_torch.uai import load_model, read_mar_file
 TICK_WORK_SECS = 30.0
 
 #: The ROADMAP.md item that ports each sampler this slice leaves out.
-UNPORTED_SAMPLERS = {"collapsed": "A8", "adaptive": "A9"}
+UNPORTED_SAMPLERS = {"adaptive": "A9"}
 
 
 @dataclasses.dataclass
@@ -46,7 +55,7 @@ class EngineConfig:
     device: str = "cuda"
     use_evidence: bool = False
     use_solution: bool = False
-    sampler: str = "simple"  # only "simple" is ported
+    sampler: str = "simple"  # simple | collapsed
     burnin: int = -1  # single-site samples; <0 → 2000·V (2000 sweeps)
     converge_window: int = 0  # single-site samples; <=0 → burnin
     chains: int = 0  # logical chains (variant slots); <=0 → 2
@@ -61,6 +70,9 @@ class EngineConfig:
     # tempered burn-in stages (0 = plain uniform-init burn, the
     # reference-faithful quench; see ChainGroup.burn_annealed)
     anneal_stages: int = 20
+    # Rao-Blackwell mixture estimator for collapsed vars (False = the
+    # reference's static collapse-time marginal; see rb_accumulate)
+    rb_mixture: bool = True
     trace_path: str = ""
     experiment: bool = False
     verbose: bool = False
@@ -103,8 +115,8 @@ class Engine:
         if cfg.sampler in UNPORTED_SAMPLERS:
             raise NotImplementedError(
                 f"sampler {cfg.sampler!r} is not ported yet (ROADMAP.md "
-                f"{UNPORTED_SAMPLERS[cfg.sampler]}); use -s simple")
-        if cfg.sampler != "simple":
+                f"{UNPORTED_SAMPLERS[cfg.sampler]}); use -s simple or -s collapsed")
+        if cfg.sampler not in ("simple", "collapsed"):
             raise ValueError(f"unknown sampler: {cfg.sampler}")
         if cfg.budget not in ("sampling", "wall"):
             raise ValueError(f"unknown budget mode {cfg.budget!r}")
@@ -170,13 +182,19 @@ class Engine:
             f"maxsecs={cfg.max_secs} maxiters={max_iters} device={cfg.device}"
         )
 
+        variants = [model] * n_slots
+        caps = None
+        if cfg.sampler == "collapsed":
+            variants = self._collapse_variants(model, n_slots, seed)
+            caps = caps_for_variants(variants, slot_hint=n_slots)
         group = ChainGroup(
             model, chains_per_variant=cfg.chains_per_variant,
             converge_window=cw_sweeps, device=cfg.device, seed=seed,
+            caps=caps, rb_mixture=cfg.rb_mixture,
         )
         self.log(f"Creating chains and performing burn-in ({burn_sweeps} sweeps)")
         group.reserve(n_slots)
-        group.add_variants([model] * n_slots)
+        group.add_variants(variants)
         group.warmup()  # wall mode: the first launch runs ON the clock
         t_clock = t_start if cfg.budget == "wall" else time.time()
         if cfg.anneal_stages > 0:
@@ -224,6 +242,10 @@ class Engine:
             if max_iters > 0 and group.total_samples > max_iters:
                 keep_working = False
 
+            # RB mixture snapshot: one per tick; ticks are a window or more
+            # apart, so chain states are decorrelated between snapshots
+            group.rb_accumulate()
+
             if now > next_status or not keep_working or cfg.experiment:
                 runtime = now - t_clock
                 if now > next_status or not keep_working:
@@ -238,11 +260,11 @@ class Engine:
                     if now > next_status or not keep_working:
                         self.log(score.report() if cfg.verbose else f"    {score}")
                     if cfg.experiment:
-                        # CollapseCount: the plain sampler collapses nothing
+                        ncol = int(group.collapsed_any().sum())
                         self.trace(
                             f"{runtime:.1f}, {score.max_hellinger:.8f}, "
                             f"{_neglog2(score.max_hellinger):.5f}, {score.max_js:.8f}, "
-                            f"{_neglog2(score.max_js):.5f}, 0"
+                            f"{_neglog2(score.max_js):.5f}, {ncol}"
                         )
                 if self.monitor:
                     self.monitor.update(
@@ -267,7 +289,7 @@ class Engine:
             runtime=runtime,
             chains=group.num_chains,
             variants=group.num_variants,
-            collapsed=[],  # kept for the reference's trace format
+            collapsed=sorted(int(x) for x in np.nonzero(group.collapsed_any())[0]),
             samples_per_sec=group.total_samples / max(runtime, 1e-9),
         )
 
@@ -306,6 +328,24 @@ class Engine:
                 fh.write(write_mar(mars))
             self.log(f"Wrote MAR solution to {cfg.mar_out}")
         return result
+
+    def _collapse_variants(self, model: DiscreteModel, n_slots: int,
+                           seed: int) -> List[DiscreteModel]:
+        """One variant per slot, each with one random collapsible var
+        collapsed (the base model where none is left), drawn as the
+        reference's prebuild loop draws them (``engine.py:230-242``)."""
+        rng = np.random.default_rng(seed)
+        variants = []
+        for slot in range(n_slots):
+            var = pick_random_collapsible(model, rng, oa_cap=COLLAPSE_OA_DENSE_CAP)
+            if var is None:
+                variants.append(model)
+                continue
+            variant, exact = collapse_var(model, var)
+            self.log(f" ... chain {slot + 1}: collapsed var {var} "
+                     f"marginal={np.round(exact, 4)}")
+            variants.append(variant)
+        return variants
 
     # ------------------------------------------------------------------
     def _final_trace(self, result: RunResult, solution, merlin):

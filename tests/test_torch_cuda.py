@@ -1,4 +1,6 @@
-"""The CUDA sweep kernel on the card, against its plain PyTorch version.
+"""The CUDA sweep kernel on the card, against its plain PyTorch version,
+at the plain models' widths and at the wide local tables of collapse
+variants (64 to 1024 rows, scopes up to 11).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on a GPU machine that has
@@ -18,6 +20,7 @@ from grample_tpu_torch.ops import gibbs_cuda, sweep
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.pgm.exact import exact_marginals
 from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.sampler.collapse import collapse_var
 
 from tests import torch_models
 
@@ -39,31 +42,98 @@ def _long_chain(v=2000):
     return torch_models.chain_model(port_pgm, seed=21, v=v)
 
 
-@pytest.mark.parametrize("name", ["grid4_evid", "grid3_card3_evid", "rand8_card4", "long_chain"])
-def test_kernel_matches_plain_on_card(cuda_device, name):
-    """One counted window of 3 sweeps (half point 1): at most 0.1 % of
-    sites differ after it, tail rows stay, counts agree wherever the
-    states agree, and each count total is chains x sweeps x slots."""
-    m = _long_chain() if name == "long_chain" else torch_models.build(port_pgm, name)
-    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
-    kst = sweep.sweep_tensors(port_encode.stack_variants([enc, enc]), cuda_device)
+def _kernel_vs_plain(encs, device, c, count=True):
+    """One window of 3 sweeps (half point 1) through the kernel and the
+    plain version from the same state: at most 0.1 % of sites differ
+    after it, tail rows stay, and (counted) counts agree wherever the
+    states agree and each half's total is chains x sweeps x slots."""
+    kst = sweep.sweep_tensors(port_encode.stack_variants(encs), device)
     args = [kst[k] for k in sweep.KERNEL_KEYS]
-    nvp, nslot = enc.caps.num_rows, enc.caps.num_slots
-    c = 1024 if name == "long_chain" else 4096
+    n, caps = len(encs), encs[0].caps
+    nvp, nslot = caps.num_rows, caps.num_slots
     rng = np.random.default_rng(2)
-    init = np.floor(rng.random((2, nvp, c)) * enc.cards[kst["pal_oon"].cpu().numpy()][:, :, None])
-    state = torch.as_tensor(init.astype(np.int32), device=cuda_device)
+    cards = np.stack([e.cards for e in encs])[np.arange(n)[:, None], kst["pal_oon"].cpu().numpy()]
+    init = np.floor(rng.random((n, nvp, c)) * cards[:, :, None])
+    state = torch.as_tensor(init.astype(np.int32), device=device)
     before = gibbs_cuda.gibbs_window.launches
-    sk, ck = gibbs_cuda.gibbs_window(*args, state.clone(), -77, 3, 1, True, 512)
-    sp, cp = window_plain(*args, state.clone(), -77, 3, 1, True, 512)
+    sk, ck = gibbs_cuda.gibbs_window(*args, state.clone(), -77, 3, 1, count, 512)
+    sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
     torch.cuda.synchronize()
     assert gibbs_cuda.gibbs_window.launches == before + 1
     assert (sk[:, :nslot] != sp[:, :nslot]).float().mean().item() <= 1e-3
     assert torch.equal(sk[:, nslot:], state[:, nslot:])
+    if not count:
+        assert ck is None and cp is None
+        return
     agree = (sk[:, :nslot] == sp[:, :nslot]).all(dim=0)
     assert torch.equal(ck[:, :, :, agree], cp[:, :, :, agree])
     for half, sweeps in ((0, 1), (1, 2)):
-        assert ck[:, half].sum().item() == cp[:, half].sum().item() == 2 * c * sweeps * nslot
+        assert ck[:, half].sum().item() == cp[:, half].sum().item() == n * c * sweeps * nslot
+
+
+@pytest.mark.parametrize("name", ["grid4_evid", "grid3_card3_evid", "rand8_card4", "long_chain"])
+def test_kernel_matches_plain_on_card(cuda_device, name):
+    m = _long_chain() if name == "long_chain" else torch_models.build(port_pgm, name)
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096)
+
+
+def _wide_encs(name):
+    """Stacked encodings with wide local tables: (encodings, rows, scope)."""
+    if name == "wide10":  # a dv-rel-shaped 10-var binary factor: 512 rows
+        m = torch_models.wide_factor(port_pgm, 10, seed=2)
+        variants = [m, m]
+    elif name == "star11_c0":  # a collapse factor over a blanket of 12
+        m = torch_models.star(port_pgm, 11, seed=4, lo=0.2)
+        variants = [collapse_var(m, 0)[0]] * 2
+    elif name == "promedus8":  # chip_smoke.py's 8 widest collapse variants
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+        m.apply_evidence(evidence)
+        variants = [collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
+    else:
+        variants = [torch_models.collapsed(port_pgm, name)[1]] * 2
+    caps = port_encode.caps_for_variants(variants, slot_hint=len(variants))
+    sweep.check_supported(caps)
+    return [port_encode.encode_model(v, caps) for v in variants], caps.oa_cap, caps.scope_cap
+
+
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("name,rows,scope", [
+    ("star8_c0", 64, 7), ("star6_card3_c0", 81, 5), ("star10_c0", 256, 9),
+    ("promedus8", 256, 9), ("wide10", 512, 10), ("star11_c0", 1024, 11),
+])
+def test_wide_kernel_matches_plain_on_card(cuda_device, name, rows, scope, count):
+    """The kernel's wide-table form (the reference's counted-loop lookup,
+    ``gibbs_pallas.py:355-367``, and past its 256-row bound) against the
+    plain version, counted and uncounted."""
+    encs, oa, s = _wide_encs(name)
+    assert (oa, s) == (rows, scope)
+    _kernel_vs_plain(encs, cuda_device, 2048 if name == "promedus8" else 4096, count)
+
+
+def test_collapse_group_on_card_vs_exact(cuda_device):
+    """A 64-row collapse variant of the 8-var star and a plain slot, on the
+    card through the kernel: every marginal (the collapsed centre's RB
+    mixture included) within 5 sigma of exact."""
+    m = torch_models.build(port_pgm, "star8")
+    truth = exact_marginals(m)
+    variant, _ = collapse_var(m, 0)
+    caps = port_encode.caps_for_variants([variant], slot_hint=2)
+    g = ChainGroup(m, chains_per_variant=4096, converge_window=50, device=cuda_device,
+                   seed=7, caps=caps)
+    g.reserve(2)
+    g.add_variants([variant, m])
+    before = gibbs_cuda.gibbs_window.launches
+    g.burn(50)
+    for _ in range(8):
+        g.advance(defer=True)
+        g.rb_accumulate()
+    assert gibbs_cuda.gibbs_window.launches == before + 9
+    h = hellinger(g.merged_marginals(), truth, m.cards)
+    # 8192 chains x 400 counted sweeps on a tree mixing within ~4 sweeps,
+    # plus at most 1.5e-3 of bias from each chain's uniform seed
+    assert h.max() < 5.0 / np.sqrt(8 * 8192 * 400 / 4) + 1.5e-3, h
+    assert g.convergence()[0] == 1.0
 
 
 @pytest.mark.parametrize("name", ["grid4_evid", "grid3_card3_evid", "rand8_card4"])

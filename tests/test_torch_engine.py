@@ -1,11 +1,15 @@
-"""The whole slice: ``sample -s simple`` through the port's Engine and CLI,
-held against the exact marginals and one reference Engine run."""
+"""The whole slice: ``sample -s simple`` and ``sample -s collapsed``
+through the port's Engine and CLI, held against the exact marginals, one
+reference Engine run, and the reference's collapse selection."""
 
 import json
 
 import numpy as np
 import pytest
 
+import grample_tpu.pgm.discrete as ref_pgm
+import grample_tpu.pgm.encode as ref_encode
+import grample_tpu.sampler.collapse as ref_collapse
 import grample_tpu_torch.pgm.discrete as port_pgm
 from grample_tpu.sampler.engine import Engine as RefEngine
 from grample_tpu.sampler.engine import EngineConfig as RefEngineConfig
@@ -109,7 +113,6 @@ def test_maxiters_and_budget_modes(tmp_path, budget):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-s", "collapsed"], "A8"),
     (["-s", "adaptive"], "A9"),
     (["--checkpoint", "ck.npz"], "A10"),
     (["--resume"], "A10"),
@@ -122,7 +125,7 @@ def test_unported_options_raise(tmp_path, argv, item):
         cli.main(["sample", "-m", path, "--device", "cpu", *argv])
 
 
-@pytest.mark.parametrize("command,item", [("collapse", "A8"), ("dot", "A12")])
+@pytest.mark.parametrize("command,item", [("dot", "A12")])
 def test_unported_commands_raise(tmp_path, command, item):
     path, _ = _write_net(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
@@ -133,3 +136,72 @@ def test_experiment_needs_trace(tmp_path):
     path, _ = _write_net(tmp_path)
     with pytest.raises(ValueError, match="trace"):
         Engine(_cfg(EngineConfig, path, device="cpu", experiment=True))
+
+
+def _ref_prebuild(name, evidence, n_slots, seed):
+    """The reference engine's prebuild loop (``engine.py:230-242``) on the
+    same model: the collapsed var of each slot, None for a plain slot."""
+    m = torch_models.MODELS[name][0](ref_pgm)
+    m.apply_evidence(evidence)
+    rng = np.random.default_rng(seed)
+    return [ref_collapse.pick_random_collapsible(m, rng, oa_cap=ref_encode.COLLAPSE_OA_DENSE_CAP)
+            for _ in range(n_slots)]
+
+
+@pytest.mark.parametrize("seed", [42, 7])
+def test_collapsed_engine_selection_and_outputs(tmp_path, seed):
+    """``-s collapsed --device cpu``: the same vars collapsed in the same
+    slots as the reference's prebuild loop for the same seed; the result's
+    ``collapsed`` list, the trace's ``Collapsed`` fields and the
+    experiment CSV's CollapseCount agree with them; the marginals,
+    collapsed vars included, are within 5 sigma of exact."""
+    name, evidence = "full8_evid", {7: 1}
+    path, truth = _write_net(tmp_path, name, evidence)
+    trace = str(tmp_path / "t.jsonl")
+    lines = []
+    cfg = _cfg(EngineConfig, path, device="cpu", sampler="collapsed", chains=4,
+               use_evidence=True, burnin=8 * 40, converge_window=8 * 40,
+               chains_per_variant=128, max_iters=4 * 128 * 40 * 7 * 4, seed=seed,
+               trace_path=trace, experiment=True)
+    res = Engine(cfg, log=lines.append).run()
+    picks = _ref_prebuild(name, evidence, 4, seed)
+    logged = [ln for ln in lines if "collapsed var" in ln]
+    want = [f" ... chain {s + 1}: collapsed var {v} " for s, v in enumerate(picks) if v is not None]
+    assert [ln.split("marginal=")[0] for ln in logged] == want
+    assert res.collapsed == sorted({v for v in picks if v is not None})
+    assert res.variants == 4 and res.chains == 512
+    text = open(trace).read()
+    csv = [ln for ln in text.splitlines() if ln[:1].isdigit()]
+    assert csv and all(ln.split(", ")[-1] == str(len(res.collapsed)) for ln in csv)
+    records = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"ID"')]
+    assert {r["ID"] for r in records if r["Collapsed"]} == set(res.collapsed)
+    summary = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{"samples"')]
+    assert summary[0]["collapsed"] == res.collapsed
+    # >= 3 x 128 chains count each free var (a var collapsed in one slot
+    # is counted by the others and, for the merge, replaced by its RB
+    # mixture); 40-sweep windows, >= 5 of them, on a net that mixes
+    # within ~8 sweeps: n_eff >= 384 * 200 / 8, plus at most 3e-3 of
+    # bias from each chain's uniform seed
+    assert res.samples >= 4 * 128 * 40 * 7 * 4
+    cards = np.full(8, 2)
+    h = hellinger(res.marginals, truth, cards, np.array([-1] * 7 + [1]))
+    assert h.max() < 5.0 / np.sqrt(8 * 384 * 200 / 8) + 3e-3, h
+    psrf = res.convergence["hellinger"]
+    assert (psrf[res.collapsed] == 1.0).all()
+
+
+def test_cli_collapsed_without_rb_mixture(tmp_path):
+    """``--no-rb-mixture``: each collapsed var's final marginal is its
+    static collapse marginal (the reference's behaviour), as logged."""
+    path, _ = _write_net(tmp_path, "full8_evid", {7: 1})
+    mar = str(tmp_path / "out.MAR")
+    rc = cli.main(["sample", "-m", path, "-d", "-s", "collapsed", "-c", "3", "--device", "cpu",
+                   "--vchains", "32", "-b", "80", "-w", "80", "-i", "20000", "-x", "1", "-e", "3",
+                   "--no-rb-mixture", "--mar-out", mar])
+    assert rc == 0
+    est = read_mar_file(mar)
+    m = torch_models.build(port_pgm, "full8_evid")
+    from grample_tpu_torch.sampler.collapse import collapse_var
+
+    for v in {v for v in _ref_prebuild("full8_evid", {7: 1}, 3, 3) if v is not None}:
+        np.testing.assert_allclose(est[v], collapse_var(m, v)[1], rtol=1e-6)

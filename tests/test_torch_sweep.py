@@ -83,6 +83,56 @@ def test_window_matches_pallas_kernel(name, sweeps, count):
     assert total == (sweeps * 2 * 256 * int(free.sum()) if count else 0)
 
 
+def _wide_inputs(name, chains, seed=0):
+    """A collapse variant with wide local tables, encoded by the reference
+    against its exact caps, stacked twice, and a random initial state."""
+    _, variant, _ = torch_models.collapsed(ref_pgm, name)
+    enc = ref_encode.encode_model(variant, ref_encode.caps_for_variants([variant]))
+    rng = np.random.default_rng(seed)
+    draw = np.floor(rng.random((2, chains, variant.num_vars + 1)) * enc.cards).astype(np.int32)
+    state = np.where(enc.fixed >= 0, enc.fixed, draw).astype(np.int32)
+    return variant, [enc, enc], state
+
+
+@pytest.mark.parametrize("name,sweeps,count", [
+    ("star8_c0", 2, True),
+    ("star10_c0", 1, True),
+    ("star10_c0", 1, False),
+    ("star6_card3_c0", 2, True),
+])
+def test_wide_window_matches_pallas_kernel(name, sweeps, count):
+    """Local tables of 64, 81 and 256 rows: the reference kernel looks
+    them up in its counted loop (``gibbs_pallas.py:355-367``), the port
+    by direct indexing.  Same encoding, state, seed and ``cb``: at least
+    99.9 % of sites agree, counts agree wherever the states agree."""
+    m, encs, state = _wide_inputs(name, chains=128)
+    assert encs[0].caps.oa_cap > 32 and encs[0].caps.gfac_cap == 0
+    dims = pal_bank_dims(encs)
+    pal = {k: jnp.asarray(v) for k, v in pallas_stack(encs, dims).items()}
+    halves = np.zeros((2, 2, 128, m.num_vars + 1, encs[0].caps.max_card), np.float32)
+    key = jax.random.key(3)
+    seed = int(jax.random.bits(key, dtype=jnp.uint32).astype(jnp.int32))
+    ref_state, ref_halves = advance_chains_pallas(
+        pal, jnp.asarray(state), jnp.asarray(halves), key, sweeps, sweeps // 2,
+        count=count, cb=128, dims=dims)
+    ref_state, ref_halves = np.asarray(ref_state), np.asarray(ref_halves)
+
+    kst = encoding_from_reference(ref_encode.stack_variants(encs), "cpu")
+    st, hv = chains_from_reference(state, halves, "cpu")
+    got_state, got_halves = sweep.advance_chains(
+        kst, st, hv, seed, sweeps, sweeps // 2, count=count, cb=128)
+    got_state, got_halves = got_state.numpy(), got_halves.numpy()
+
+    free = m.free_mask
+    agree = got_state[:, :, :-1] == ref_state[:, :, :-1]
+    assert agree[:, :, free].mean() >= 0.999
+    np.testing.assert_array_equal(got_state[:, :, :-1][:, :, ~free], state[:, :, :-1][:, :, ~free])
+    same = agree.all(axis=0)
+    np.testing.assert_array_equal(
+        got_halves[:, :, :, :-1][:, :, same], ref_halves[:, :, :, :-1][:, :, same])
+    assert got_halves.sum() == (sweeps * 2 * 128 * int(free.sum()) if count else 0)
+
+
 def test_advance_chains_multi_block_layout():
     """Chains in several hash blocks, split halves and an evidence var:
     every counted site lands in its half, evidence is never counted."""
@@ -111,7 +161,7 @@ def _caps_of(name, **kw):
     return port_encode.compute_caps(m, **kw)
 
 
-@pytest.mark.parametrize("case", ["gather_bank", "card17", "rows"])
+@pytest.mark.parametrize("case", ["gather_bank", "card17", "rows", "oa"])
 def test_gate_refuses(case):
     """The sweep refuses what its kernel does not take, with a reason."""
     import dataclasses
@@ -122,9 +172,20 @@ def test_gate_refuses(case):
         "gather_bank": dataclasses.replace(caps, gfac_cap=1),
         "card17": dataclasses.replace(caps, max_card=17),
         "rows": dataclasses.replace(caps, tail_cap=8000),
+        "oa": dataclasses.replace(caps, oa_cap=sweep.OA_MAX + 1),
     }[case]
-    with pytest.raises(ValueError, match="gather bank|max card|shared memory"):
+    with pytest.raises(ValueError, match="gather bank|max card|shared memory|local tables"):
         sweep.check_supported(bad)
+
+
+def test_gate_admits_wide_tables():
+    """Above the reference's 256-row kernel bound the port still takes a
+    dense encoding: a 10-var binary factor (a dv-rel-shaped incidence of
+    512 rows) encodes dense and passes the gate."""
+    m = torch_models.wide_factor(port_pgm, 10, seed=2)
+    caps = port_encode.compute_caps(m, headroom_factors=0)
+    assert caps.oa_cap == 512 and caps.gfac_cap == 0
+    sweep.check_supported(caps)
 
 
 def test_gate_refuses_gather_model():

@@ -3,8 +3,12 @@
 Each builder takes the ``discrete`` module of one package
 (``grample_tpu.pgm.discrete`` or ``grample_tpu_torch.pgm.discrete``) and
 draws its tables from numpy with a fixed seed, so both packages see the
-same model.
+same model.  ``collapsed`` builds a collapse variant with the same
+package's ``sampler.collapse``; ``promedus_like`` is the Promedus-shaped
+Bayes net that ``chip_smoke.py`` also runs.
 """
+
+import importlib
 
 import numpy as np
 
@@ -52,6 +56,58 @@ def chain_model(pgm, seed, v=4):
     return pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
 
 
+def star(pgm, leaves, seed, lo, unary=False, card=2):
+    """Star net: centre 0 coupled pairwise to every leaf, so the centre's
+    blanket is the whole net and collapsing it leaves one factor over all
+    leaves (local tables of card**(leaves-1) rows)."""
+    rng = np.random.default_rng(seed)
+    v = leaves + 1
+    factors = [pgm.Factor(f"u{i}", [i], rng.random(card) + lo) for i in range(v)] if unary else []
+    factors += [pgm.Factor(f"{'e' if unary else 's'}{i}", [0, i], rng.random(card * card) + lo)
+                for i in range(1, v)]
+    return pgm.DiscreteModel(type="MARKOV", cards=[card] * v, factors=factors)
+
+
+def full(pgm, v, seed):
+    """Fully connected binary net: a unary per var and a pairwise factor
+    per pair, so every var's blanket is the whole net."""
+    rng = np.random.default_rng(seed)
+    factors = [pgm.Factor(f"u{i}", [i], rng.random(2) + 0.3) for i in range(v)]
+    factors += [pgm.Factor(f"p{i}_{j}", [i, j], rng.random(4) + 0.3)
+                for i in range(v) for j in range(i + 1, v)]
+    return pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
+
+
+def wide_factor(pgm, v, seed):
+    """One factor over ``v`` binary vars (the dv-rel family's widest CPTs
+    have scope 10: local tables of 2**(v-1) rows) plus a unary per var."""
+    rng = np.random.default_rng(seed)
+    factors = [pgm.Factor("wide", np.arange(v), rng.random(2 ** v) + 0.2)]
+    factors += [pgm.Factor(f"u{i}", [i], rng.random(2) + 0.3) for i in range(v)]
+    return pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
+
+
+def promedus_like(pgm, seed, v=916, window=40, evidence_frac=0.05):
+    """Promedus-shaped Bayes net (the UAI Promedus_11-19 family: 374-916
+    binary vars, one CPT per var with at most 2 parents, max scope 3,
+    blankets up to about 13): var i's CPT is over 0-2 parents drawn
+    among the ``window`` previous vars, then i.  Returns (model, evidence
+    {var: value}) with ``evidence_frac`` of the vars observed; the
+    evidence is not applied."""
+    rng = np.random.default_rng(seed)
+    factors = []
+    for i in range(v):
+        lo = max(0, i - window)
+        npar = min(i - lo, int(rng.integers(0, 3)))
+        parents = sorted(rng.choice(np.arange(lo, i), size=npar, replace=False).tolist())
+        cpt = rng.random((2 ** npar, 2)) + 0.05
+        cpt /= cpt.sum(axis=1, keepdims=True)
+        factors.append(pgm.Factor(f"cpt{i}", parents + [i], cpt.reshape(-1)))
+    m = pgm.DiscreteModel(type="BAYES", cards=[2] * v, factors=factors)
+    obs = rng.choice(v, size=int(round(evidence_frac * v)), replace=False)
+    return m, {int(u): int(rng.integers(0, 2)) for u in sorted(obs)}
+
+
 #: (name, builder(pgm) -> model, evidence) cases shared by the port tests
 MODELS = {
     "grid3": (lambda pgm: grid(pgm, 3), {}),
@@ -59,6 +115,21 @@ MODELS = {
     "grid3_card3_evid": (lambda pgm: grid(pgm, 3, seed=11, card=3), {4: 2}),
     "rand6": (lambda pgm: rand_model(pgm, 12345), {}),
     "rand8_card4": (lambda pgm: rand_model(pgm, 99, v=8, max_card=4, n_factors=10), {1: 3}),
+    # tests/test_pallas.py:206-214
+    "star8": (lambda pgm: star(pgm, 7, seed=3, lo=0.3, unary=True), {}),
+    # __graft_entry__.py:178-185
+    "star10": (lambda pgm: star(pgm, 9, seed=11, lo=0.2), {}),
+    "star6_card3_evid": (lambda pgm: star(pgm, 5, seed=5, lo=0.2, unary=True, card=3), {5: 1}),
+    "full8_evid": (lambda pgm: full(pgm, 8, seed=13), {7: 1}),
+}
+
+#: collapse variants with wide local tables: name -> (MODELS entry,
+#: collapsed var); the widest incidence of each, in local rows
+WIDE = {
+    "star8_c0": ("star8", 0),  # 64 rows
+    "star10_c0": ("star10", 0),  # 256 rows
+    "star6_card3_c0": ("star6_card3_evid", 0),  # 81 rows, card 3
+    "full8_c2": ("full8_evid", 2),  # 64 rows, with evidence
 }
 
 
@@ -69,3 +140,28 @@ def build(pgm, name):
     if evidence:
         m.apply_evidence({k: v for k, v in evidence.items() if v < m.cards[k]})
     return m
+
+
+def _collapse(pgm):
+    """The ``sampler.collapse`` module of ``pgm``'s package."""
+    return importlib.import_module(pgm.__name__.rsplit(".", 2)[0] + ".sampler.collapse")
+
+
+def collapsed(pgm, name):
+    """The collapse variant :data:`WIDE` ``name``, built with ``pgm``'s own
+    package; returns (base model, variant, exact collapse marginal)."""
+    base_name, var = WIDE[name]
+    m = build(pgm, base_name)
+    variant, exact = _collapse(pgm).collapse_var(m, var)
+    return m, variant, exact
+
+
+def widest_collapsible(pgm, m, n, oa_cap=256):
+    """The ``n`` collapsible vars of ``m`` (dense guard ``oa_cap``) with
+    the largest blankets, ties by index: a deterministic variant set with
+    the widest local tables the collapsed sampler admits."""
+    collapse = _collapse(pgm)
+    blankets = m.blankets()
+    ok = [v for v in range(m.num_vars)
+          if collapse.is_collapsible(m, v, blankets[v], oa_cap=oa_cap)]
+    return sorted(ok, key=lambda v: (-len(blankets[v]), v))[:n]
