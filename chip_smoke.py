@@ -19,6 +19,13 @@ non-zero:
      evidence; ``tests/torch_models.py::promedus_like``), its 8 widest
      collapsible vars, whose stacked local tables have 33-256 rows
      (asserted), 8 x 16384 chains, one sweep, counted and uncounted;
+  3c. the same on the collapse-headroom encodings adaptive runs use:
+     (a) the 10x10 grid at the single adaptive group's caps (headroom for
+     128 slots, two spare factor slots per var), 2 plain slots + 2
+     collapse variants, 4 x 32768 chains; (b) the Promedus-shaped net at
+     the split group's ``aux_caps`` (local tables of 256 rows, 4200 state
+     rows, 32 threads per block), 8 collapse variants picked by ``SEED``,
+     8 x 256 chains;
   4. the main path through the CLI: ``sample -s simple`` on a 4x4 grid
      with evidence and an exact ``.MAR``, 2 x 131072 chains; the MAR it
      writes must be within 0.005 max Hellinger of the exact marginals
@@ -29,14 +36,31 @@ non-zero:
      evidence (every collapse variant has 64-row local tables), long
      enough for the RB mixture to take over; the same Hellinger bound,
      the launch counter grown, the collapsed vars in the log;
+  4c. the adaptive path through the CLI: ``sample -s adaptive -c 2
+     --vchains 131072 -a 2 -x 30`` on the 4x4 grid of phase 4: one group
+     (no split group in the log), at least 2 adapt steps and 2 collapsed
+     vars, the same Hellinger bound, the launch counter grown;
+  4d. the same with ``--split-group on``: the split group in the log and
+     aux seconds above 0, the same bounds;
+  4e. kill and resume on the card: a group on the 10x10 grid (2 x 131072
+     chains) equals, bit for bit, itself saved, loaded and advanced; and
+     the run of 4d with ``--checkpoint``, stopped by its budget, then
+     ``--resume``d: it continues the sample count and the RB weights;
   5. timing (CUDA events; each line names the card and its power limit):
      the 10x10 grid at 262144 chains, one 256-sweep counted window,
      kernel and plain; the 8 Promedus-shaped collapse variants at 8 x
-     16384 chains, a 256-sweep counted window on the kernel and a shorter
-     one on both kernel and plain, with occupancy and table bytes; the
-     same window on 8 plain copies of the net; and an engine run
+     16384 chains, a 32-sweep counted window on the kernel and a shorter
+     one on both kernel and plain, with occupancy and table bytes; a
+     256-sweep window on 8 plain copies of the net; and an engine run
      ``-s collapsed -c 8 --vchains 16384`` on that net, about 10 s of
      sampling, with its counted site-samples/s and peak device memory;
+  5b. the adaptive engine on the Promedus-shaped net (the reference's
+     bench shape): ``-s adaptive -c 2 --vchains 8192 -a 4``, burn-in
+     50·V, window 100·V, 30 s; the gate must pick the split group.  Its
+     adapt steps, collapsed vars, counted site-samples/s, aux share of
+     the sampling clock, aux sweeps per tick, host seconds per adapt
+     step, set-up seconds and peak device memory, beside ``-s simple -c 2
+     --vchains 8192`` at the same budget;
   6. a JSON line describing each kernel form, then, last,
      ``{"ok": true, "device": {...}}``.
 
@@ -64,8 +88,14 @@ MAX_MISMATCH = 1e-3
 #: collapse variants x chains per variant of the wide-table phases
 WIDE_SLOTS, WIDE_CHAINS = 8, 16384
 #: counted sweeps of the window timed on both the kernel and the plain
-#: version (the plain version takes about 0.7 s per sweep there on an H100)
+#: version (the plain version takes about 0.7 s per sweep there on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W)
 WIDE_PAIR_SWEEPS = 8
+#: counted sweeps of the longer kernel-only window on the collapse
+#: variants (about 10 s on an NVIDIA H100 80GB HBM3 at 700.00 W, see PERF.md)
+WIDE_FULL_SWEEPS = 32
+#: chains per variant of the headroom-encoding comparison on the grid
+HEADROOM_CHAINS = 32768
 #: chains per collapse variant of the collapsed CLI run (8 x 32768)
 COLLAPSED_CHAINS = 32768
 #: 5 sigma of the max Hellinger error for >= 262144 independent draws per
@@ -73,6 +103,8 @@ COLLAPSED_CHAINS = 32768
 #: 7e-4 bias from each chain's uniform 1/card seed over >= 500 counted
 #: sweeps
 HELL_BOUND = 0.005
+#: sampling-clock budget (s) of the adaptive CLI runs and the 5b runs
+ADAPT_SECS = 30
 
 
 def grid_model(side: int, seed: int):
@@ -157,6 +189,46 @@ def promedus_variants(wide: bool):
     return variants, caps_for_variants(variants, slot_hint=WIDE_SLOTS), m
 
 
+def headroom_grid_variants():
+    """The 10x10 grid (phase 3's first model) at the single adaptive
+    group's caps, 2 plain slots + 2 collapse variants picked by ``SEED``."""
+    from grample_tpu_torch.pgm.encode import compute_caps
+    from grample_tpu_torch.sampler.collapse import collapse_var
+
+    m = grid_variants()[0][0]
+    caps = compute_caps(m, collapse_headroom=True, slot_hint=128, headroom_factors=2)
+    picks = distinct_picks(m, 2, caps.oa_dense_cap)
+    return [m, m] + [collapse_var(m, v)[0] for v in picks], caps, picks
+
+
+def distinct_picks(m, n, oa_cap):
+    """``n`` distinct random collapsible vars of ``m``, drawn from ``SEED``."""
+    from grample_tpu_torch.sampler.collapse import pick_random_collapsible
+
+    rng = np.random.default_rng(SEED)
+    picks = []
+    while len(picks) < n:
+        v = pick_random_collapsible(m, rng, oa_cap=oa_cap)
+        if v not in picks:
+            picks.append(v)
+    return picks
+
+
+def aux_variants():
+    """8 collapse variants of the Promedus-shaped net picked by ``SEED``, at
+    the split group's ``aux_caps``."""
+    from grample_tpu_torch.pgm import discrete
+    from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP
+    from grample_tpu_torch.sampler.collapse import collapse_var
+    from grample_tpu_torch.sampler.split import aux_caps
+    from tests import torch_models
+
+    m, evidence = torch_models.promedus_like(discrete, seed=1)
+    m.apply_evidence(evidence)
+    picks = distinct_picks(m, WIDE_SLOTS, COLLAPSE_OA_DENSE_CAP)
+    return [collapse_var(m, v)[0] for v in picks], aux_caps(m), picks
+
+
 def compare_window(torch, kernel, plain, args, state0, free_rows, n_free, nslot,
                    chains, cb, label):
     """One counted and one uncounted sweep through the kernel and the plain
@@ -202,6 +274,26 @@ def write_net(td, name, model, evidence, truth=None):
     return path
 
 
+def run_cli(cli, argv):
+    """``cli.main(argv)`` with its standard output captured: (rc, log)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return rc, out.getvalue()
+
+
+def summary(trace_path):
+    """The RESULT SUMMARY record of an engine trace."""
+    text = open(trace_path).read().split("// RESULT SUMMARY\n")[1]
+    return json.loads(text.splitlines()[0])
+
+
+def adapt_secs(log):
+    """Host seconds of each adapt step, from the engine's ADAPT lines."""
+    return [float(ln.rsplit(" in ", 1)[1].split()[0])
+            for ln in log.splitlines() if ln.startswith("ADAPT: ")]
+
+
 def main() -> int:
     import torch
 
@@ -220,6 +312,7 @@ def main() -> int:
     from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
+    from grample_tpu_torch.sampler.split import AUX_CHAINS
     from grample_tpu_torch.uai import read_mar_file
     from tests import torch_models
 
@@ -259,6 +352,33 @@ def main() -> int:
     wide_err = compare_window(torch, gibbs_cuda.gibbs_window, window_plain, wargs, wstate0,
                               wfree, wn_free, wcaps.num_slots, WIDE_CHAINS,
                               hash_block(WIDE_CHAINS), f"{WIDE_SLOTS} collapse variants")
+
+    # ---- 3c. the kernel on collapse-headroom encodings -----------------------
+    hvariants, hcaps, hpicks = headroom_grid_variants()
+    hkst, hstate0, hfree, hn_free = window_inputs(torch, dev, hvariants, hcaps,
+                                                  HEADROOM_CHAINS)
+    print(f"10x10 grid at headroom caps: collapse variants of vars {hpicks}: "
+          f"color_cap {hcaps.color_cap}, adj_cap {hcaps.adj_cap}, oa_cap {hcaps.oa_cap}, "
+          f"tail_cap {hcaps.tail_cap}, NVp {hcaps.num_rows}", flush=True)
+    max_err = max(max_err, compare_window(
+        torch, gibbs_cuda.gibbs_window, window_plain, [hkst[k] for k in KERNEL_KEYS],
+        hstate0, hfree, hn_free, hcaps.num_slots, HEADROOM_CHAINS,
+        hash_block(HEADROOM_CHAINS), "10x10 grid, headroom caps, 2 plain + 2 collapse"))
+    t0 = time.perf_counter()
+    avariants, acaps, apicks = aux_variants()
+    check((acaps.oa_cap, acaps.num_rows) == (256, 4200),
+          f"aux caps oa_cap {acaps.oa_cap}, NVp {acaps.num_rows} != (256, 4200)")
+    akst, astate0, afree, an_free = window_inputs(torch, dev, avariants, acaps, AUX_CHAINS)
+    athreads, ablocks = gibbs_cuda.occupancy(acaps.max_card, True, acaps.num_rows)
+    print(f"Promedus-shaped net at aux caps: collapse variants of vars {apicks}: "
+          f"color_cap {acaps.color_cap}, oa_cap {acaps.oa_cap}, NVp {acaps.num_rows}, "
+          f"{athreads} threads per block, {ablocks} block(s) per SM, k_tables "
+          f"{akst['k_tables'][0].numel() * 4 / 1e6:.1f} MB per variant (host set-up "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    wide_err = max(wide_err, compare_window(
+        torch, gibbs_cuda.gibbs_window, window_plain, [akst[k] for k in KERNEL_KEYS],
+        astate0, afree, an_free, acaps.num_slots, AUX_CHAINS, hash_block(AUX_CHAINS),
+        f"{WIDE_SLOTS} aux collapse variants x {AUX_CHAINS} chains"))
 
     # ---- 4. the main path through the CLI ------------------------------------
     model = grid_model(4, 7)
@@ -339,8 +459,104 @@ def main() -> int:
           f"{ccaps.oa_cap} rows), max Hellinger {col_score.max_hellinger:.6f} "
           f"(bound {HELL_BOUND})", flush=True)
 
+    # ---- 4c/4d. the adaptive path through the CLI: one group, then split -----
+    model = grid_model(4, 7)
+    evidence = {5: 1, 10: 0}
+    model_ev = grid_model(4, 7)
+    model_ev.apply_evidence(evidence)
+    truth = exact_marginals(model_ev)
+    v = model.num_vars
+    with tempfile.TemporaryDirectory() as td:
+        path = write_net(td, "grid4", model, evidence, truth)
+        ck = os.path.join(td, "ck.npz")
+        for phase, split in (("4c", "auto"), ("4d", "on")):
+            mar_out, trace = os.path.join(td, f"{phase}.MAR"), os.path.join(td, f"{phase}.t")
+            argv = ["sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2",
+                    "--vchains", str(GRID_CHAINS), "-a", "2", "-b", str(200 * v),
+                    "-w", str(100 * v), "-x", str(ADAPT_SECS), "-e", str(SEED),
+                    "--split-group", split, "--mar-out", mar_out, "-t", trace]
+            gibbs_cuda.gibbs_window.launches = 0
+            t0 = time.perf_counter()
+            rc, log = run_cli(cli, argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches_a = gibbs_cuda.gibbs_window.launches
+            res = summary(trace)
+            steps = adapt_secs(log)
+            check(rc == 0, f"{phase}: cli returned {rc}")
+            check(launches_a > 0, f"{phase}: the adaptive CLI run did not launch the kernel")
+            check(("split group" in log) == (split == "on"),
+                  f"{phase}: split group {'missing from' if split == 'on' else 'in'} the log")
+            check(len(steps) >= 2, f"{phase}: {len(steps)} adapt steps < 2")
+            check(len(res["collapsed"]) >= 2, f"{phase}: collapsed vars {res['collapsed']}")
+            check((res["aux_secs"] > 0) == (split == "on"), f"{phase}: aux_secs {res['aux_secs']}")
+            est = pad_marginals(read_mar_file(mar_out), model.cards)
+            check(np.isfinite(est).all() and est.shape == (v, 2), f"{phase}: bad MAR output")
+            a_score = error_suite(est, truth, model_ev.cards, model_ev.fixed, None)
+            check(a_score.max_hellinger < HELL_BOUND,
+                  f"{phase}: max Hellinger {a_score.max_hellinger:.5f} >= {HELL_BOUND}")
+            aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
+            print(f"cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {ADAPT_SECS} "
+                  f"--split-group {split} ({phase}): {secs:.1f} s, {launches_a} kernel "
+                  f"launches, {len(steps)} adapt steps ({sum(steps):.3f} s of host time), "
+                  f"collapsed vars {res['collapsed']}, {res['variants']} variants, aux "
+                  f"{res['aux_secs']:.3f} s {aux_line}, max Hellinger "
+                  f"{a_score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
+
+        # ---- 4e. kill and resume on the card ---------------------------------
+        from grample_tpu_torch.sampler.chains import ChainGroup
+        from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
+
+        gmodel = grid_variants()[0][0]
+
+        def fresh():
+            g = ChainGroup(gmodel, chains_per_variant=GRID_CHAINS, converge_window=20,
+                           device=dev, seed=SEED)
+            g.add_variants([gmodel, gmodel])
+            g.burn(10)
+            g.advance()
+            return g
+
+        t0 = time.perf_counter()
+        a = fresh()
+        a.advance()
+        b = fresh()
+        save_checkpoint(ck, b)
+        del b
+        b2, _ = load_checkpoint(ck, gmodel, device=dev)
+        b2.advance()
+        check(torch.equal(a.state, b2.state) and torch.equal(a.halves, b2.halves)
+              and np.array_equal(a.totals, b2.totals), "kill-and-resume is not bit-exact")
+        print(f"kill and resume, 10x10 grid, 2 x {GRID_CHAINS} chains: state, halves and "
+              f"totals bit-exact ({time.perf_counter() - t0:.1f} s)", flush=True)
+        del a, b2
+        base = ["sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2",
+                "--vchains", str(GRID_CHAINS), "-a", "2", "-b", str(200 * v),
+                "-w", str(100 * v), "-e", str(SEED), "--split-group", "on",
+                "--checkpoint", ck, "--checkpoint-secs", "2"]
+        os.remove(ck)
+        rc, log1 = run_cli(cli, base + ["-x", str(ADAPT_SECS // 3)])
+        check(rc == 0 and os.path.exists(ck + ".aux"), "4e: the first run wrote no split snapshot")
+        g1, meta1 = load_checkpoint(ck, model_ev, device=dev)
+        snaps1 = dict(g1.aux._rbp_snaps)
+        gibbs_cuda.gibbs_window.launches = 0
+        rc, log2 = run_cli(cli, base + ["-x", str(2 * (ADAPT_SECS // 3)), "--resume"])
+        launches_r = gibbs_cuda.gibbs_window.launches
+        g2, meta2 = load_checkpoint(ck, model_ev, device=dev)
+        check(rc == 0 and "RESUMED" in log2, "4e: the run did not resume")
+        check(launches_r > 0, "4e: the resumed run did not launch the kernel")
+        check(meta2["total_samples"] > meta1["total_samples"], "4e: the sample count did not grow")
+        check(snaps1 and all(g2.aux._rbp_snaps[k] > n for k, n in snaps1.items()),
+              f"4e: RB snapshots did not continue: {snaps1} -> {g2.aux._rbp_snaps}")
+        print(f"kill and resume through the CLI (4d with --checkpoint): "
+              f"{meta1['total_samples']:,} -> {meta2['total_samples']:,} samples, "
+              f"{meta1['runtime']:.1f} -> {meta2['runtime']:.1f} s of clock, RB snapshots "
+              f"{snaps1} -> {dict(g2.aux._rbp_snaps)}, {launches_r} kernel launches after "
+              f"resume", flush=True)
+        del g1, g2
+
     # ---- 5. timing ---------------------------------------------------------
-    def timed(fn, a, st0, sweeps, count=True) -> float:
+    def timed(fn, a, st0, sweeps, count=True, cb=cb) -> float:
         st = st0.clone()
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -372,16 +588,30 @@ def main() -> int:
     print(f"timing: the same window uncounted: kernel {uncounted_ms:.3f} ms "
           f"({uncounted_ms / kernel_ms:.3f} of the counted window)", flush=True)
 
+    # the collapse-headroom encodings of phase 3c, kernel and plain
+    for label, kst_h, st_h, nf, chains, sweeps in (
+            ("10x10 grid at headroom caps, 2 plain + 2 collapse variants x "
+             f"{HEADROOM_CHAINS} chains", hkst, hstate0, hn_free, HEADROOM_CHAINS, TIMED_SWEEPS),
+            (f"{WIDE_SLOTS} Promedus-shaped collapse variants at aux caps x {AUX_CHAINS} "
+             "chains", akst, astate0, an_free, AUX_CHAINS, WIDE_PAIR_SWEEPS)):
+        a_h = [kst_h[k] for k in KERNEL_KEYS]
+        cb_h = hash_block(chains)
+        gibbs_cuda.gibbs_window(*a_h, st_h.clone(), SEED, 1, 0, True, cb_h)  # warm
+        k_ms = min(timed(gibbs_cuda.gibbs_window, a_h, st_h, sweeps, cb=cb_h),
+                   timed(gibbs_cuda.gibbs_window, a_h, st_h, sweeps, cb=cb_h))
+        p_ms = timed(window_plain, a_h, st_h, sweeps, cb=cb_h)
+        rate_line(f"{label}, {sweeps}-sweep counted window", sweeps * chains * nf, k_ms, p_ms)
+    del hkst, hstate0, akst, astate0
+
     threads, blocks = gibbs_cuda.occupancy(wcaps.max_card, True, wcaps.num_rows)
     table_mb = wkst["k_tables"][0].numel() * 4 / 1e6
     print(f"collapse variants: {threads} threads per block, {blocks} block(s) per SM "
           f"({wcaps.num_rows * threads} bytes of state per block), k_tables "
           f"{table_mb:.1f} MB per variant, {WIDE_SLOTS * table_mb:.1f} MB in all", flush=True)
     wsites = WIDE_CHAINS * wn_free
-    # one run: it takes about 80 s on an H100 (see PERF.md)
-    wide_full_ms = timed(gibbs_cuda.gibbs_window, wargs, wstate0, TIMED_SWEEPS)
-    rate_line(f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, {TIMED_SWEEPS}-sweep "
-              "counted window", TIMED_SWEEPS * wsites, wide_full_ms)
+    wide_full_ms = timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_FULL_SWEEPS)
+    rate_line(f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, {WIDE_FULL_SWEEPS}-sweep "
+              "counted window", WIDE_FULL_SWEEPS * wsites, wide_full_ms)
     wide_ms = min(timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_PAIR_SWEEPS),
                   timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_PAIR_SWEEPS))
     wide_plain_ms = timed(window_plain, wargs, wstate0, WIDE_PAIR_SWEEPS)
@@ -399,8 +629,9 @@ def main() -> int:
               f"{pthreads} threads, {pblocks} block(s) per SM) x {WIDE_CHAINS} chains, "
               f"{TIMED_SWEEPS}-sweep counted window", TIMED_SWEEPS * WIDE_CHAINS * pn_free,
               plain_copy_ms)
-    print(f"timing: collapse variants / plain copies, time per counted site: "
-          f"{(wide_full_ms / wsites) / (plain_copy_ms / (WIDE_CHAINS * pn_free)):.3f}",
+    per_site = ((wide_full_ms / (WIDE_FULL_SWEEPS * wsites))
+                / (plain_copy_ms / (TIMED_SWEEPS * WIDE_CHAINS * pn_free)))
+    print(f"timing: collapse variants / plain copies, time per counted site: {per_site:.3f}",
           flush=True)
     del pkst, pargs, pstate0
 
@@ -424,6 +655,51 @@ def main() -> int:
           f"the Promedus-shaped net: {res.samples_per_sec:.4e} counted site-samples/s over "
           f"{res.runtime:.2f} s of sampling clock ({eng_secs:.2f} s wall, {res.sweeps} "
           f"sweeps), collapsed vars {res.collapsed}, peak device memory {peak_gb:.2f} GB",
+          flush=True)
+
+    # ---- 5b. the adaptive engine on the Promedus-shaped net -----------------
+    with tempfile.TemporaryDirectory() as td:
+        m_plain, p_evidence = torch_models.promedus_like(discrete, seed=1)
+        path = write_net(td, "promedus", m_plain, p_evidence)
+        v = m_plain.num_vars
+        runs = {}
+        for sampler in ("adaptive", "simple"):
+            cfg = EngineConfig(
+                model_path=path, device="cuda", use_evidence=True, sampler=sampler,
+                chains=2, chains_per_variant=8192, chain_adds=4 if sampler == "adaptive" else 1,
+                burnin=50 * v, converge_window=100 * v, max_secs=float(ADAPT_SECS), seed=SEED)
+            lines = []
+            gibbs_cuda.gibbs_window.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = Engine(cfg, log=lines.append).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[sampler] = (res, wall, torch.cuda.max_memory_allocated() / 1e9,
+                             gibbs_cuda.gibbs_window.launches, "\n".join(lines))
+    res, wall, peak_gb, launches_5b, log = runs["adaptive"]
+    steps = adapt_secs(log)
+    aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
+    check("split group" in log, "5b: the gate did not pick the split group")
+    check(res.samples > 0 and np.isfinite(res.marginals).all() and launches_5b > 0,
+          "5b: the adaptive engine run produced nothing")
+    check(len(steps) >= 1 and res.aux_secs > 0, f"5b: {len(steps)} adapt steps, aux "
+          f"{res.aux_secs} s")
+    print(f"timing ({card}): engine -s adaptive -c 2 --vchains 8192 -a 4 on the "
+          f"Promedus-shaped net (split group chosen by the gate): {len(steps)} adapt steps, "
+          f"{len(res.collapsed)} collapsed vars, {res.variants} variants; "
+          f"{res.samples_per_sec:.4e} counted site-samples/s over {res.runtime:.2f} s of "
+          f"sampling clock; aux {res.aux_secs:.3f} s = {res.aux_secs / res.runtime:.3f} of the "
+          f"clock {aux_line}; host s per adapt step {[round(x, 3) for x in steps]} "
+          f"(mean {np.mean(steps):.3f}); set-up {wall - res.runtime:.2f} s ({wall:.2f} s "
+          f"wall); peak device memory {peak_gb:.2f} GB; {launches_5b} kernel launches",
+          flush=True)
+    res_s, wall_s, peak_s, launches_s, _ = runs["simple"]
+    check(res_s.samples > 0 and launches_s > 0, "5b: the simple engine run produced nothing")
+    print(f"timing ({card}): engine -s simple -c 2 --vchains 8192 on the same net: "
+          f"{res_s.samples_per_sec:.4e} counted site-samples/s over {res_s.runtime:.2f} s of "
+          f"sampling clock; set-up {wall_s - res_s.runtime:.2f} s; peak device memory "
+          f"{peak_s:.2f} GB; adaptive/simple rate {res.samples_per_sec / res_s.samples_per_sec:.3f}",
           flush=True)
 
     # ---- 6. results --------------------------------------------------------

@@ -10,9 +10,10 @@ find, and imports neither JAX nor ``grample_tpu``.
   - ``grample_tpu_torch.metrics``  — error suite + PSRF convergence
   - ``grample_tpu_torch.ops``      — the sweep: CUDA kernel + plain version
   - ``grample_tpu_torch.sampler``  — exact collapse, chain runtime (with the
-    Rao-Blackwell mixture) and run orchestration
+    Rao-Blackwell mixture), the adaptive controller, the split group,
+    checkpoints and run orchestration
   - ``grample_tpu_torch.cli``      — the ``sample`` (``-s simple``,
-    ``-s collapsed``) and ``collapse`` commands
+    ``-s collapsed``, ``-s adaptive``) and ``collapse`` commands
 """
 
 __version__ = "0.1.0"

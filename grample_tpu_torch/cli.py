@@ -1,18 +1,19 @@
-"""Command-line interface: ``sample`` (``-s simple`` and ``-s collapsed``)
-and ``collapse``.
+"""Command-line interface: ``sample`` (``-s simple``, ``-s collapsed`` and
+``-s adaptive``, with ``--checkpoint``/``--resume``) and ``collapse``.
 
 Mirrors ``grample_tpu.cli`` (reference ``cmd/root.go:163-250``) with the
 same flags and derived defaults, on a PyTorch device:
 
     python -m grample_tpu_torch.cli sample -m net.uai -d -o -s simple
     python -m grample_tpu_torch.cli sample -m net.uai -d -o -s collapsed -c 8 --vchains 32768
+    python -m grample_tpu_torch.cli sample -m net.uai -d -o -s adaptive -a 4 --vchains 8192
+    python -m grample_tpu_torch.cli sample -m net.uai -s adaptive --checkpoint ck.npz --resume
     python -m grample_tpu_torch.cli sample -m net.uai -o --device cpu
     python -m grample_tpu_torch.cli collapse -m net.uai
 
 The parts of the reference CLI that later slices port raise
-``NotImplementedError`` naming their ROADMAP.md item: ``-s adaptive``
-(A9), ``--checkpoint``/``--resume`` (A10), ``--mesh``/``--distributed``
-(A11) and the ``dot`` subcommand (A12).
+``NotImplementedError`` naming their ROADMAP.md item: ``--mesh``/
+``--distributed`` (A11) and the ``dot`` subcommand (A12).
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="logical chains / variant slots (<=0: 2)")
     s.add_argument("--vchains", type=int, default=64,
                    help="micro-chains per logical chain (the batch axis)")
+    s.add_argument("-a", "--chainadds", type=int, default=1,
+                   help="chains added per adaptation step")
     s.add_argument("-i", "--maxiters", type=int, default=0,
                    help="max site samples (0: unlimited)")
     s.add_argument("-x", "--maxsecs", type=float, default=300.0,
@@ -63,6 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("-p", "--experiment", action="store_true",
                    help="experiment mode: CSV time series into the trace file")
     s.add_argument("--addr", default="", help="monitor HTTP address, e.g. :8000")
+    s.add_argument("--measure", default="hellinger",
+                   choices=["hellinger", "js", "maxabs", "meanabs"])
+    s.add_argument("--adapt-policy", default="worst", choices=["worst", "ref-tail"])
+    s.add_argument("--no-warm-start", action="store_true",
+                   help="uniform-init adaptive chains (reference behavior)")
     s.add_argument("--anneal", type=int, default=20, metavar="STAGES",
                    help="tempered burn-in stages (0 = plain uniform-init "
                         "burn, the reference behavior)")
@@ -70,8 +78,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="freeze collapsed-var marginals at collapse time "
                         "(reference behavior) instead of the RB mixture")
     s.add_argument("--mar-out", default="", help="write final MAR solution to file")
-    s.add_argument("--checkpoint", default="", help="(not ported: ROADMAP.md A10)")
-    s.add_argument("--resume", action="store_true", help="(not ported: ROADMAP.md A10)")
+    s.add_argument("--checkpoint", default="", help="checkpoint file path")
+    s.add_argument("--checkpoint-secs", type=float, default=60.0)
+    s.add_argument("--resume", action="store_true",
+                   help="resume from --checkpoint if it exists (budgets continue)")
+    s.add_argument("--split-group", default="auto", choices=("auto", "on", "off"),
+                   help="adaptive split execution: plain slots on plain caps + "
+                        "reduced-chain collapse slots (see sampler/split.py)")
+    s.add_argument("--reserve", type=int, default=0,
+                   help="pre-size variant slot capacity (avoids mid-run restacks)")
     s.add_argument("--mesh", default="off", help="(not ported: ROADMAP.md A11)")
     s.add_argument("--distributed", action="store_true",
                    help="(not ported: ROADMAP.md A11)")
@@ -88,14 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cmd_sample(args) -> int:
-    for flag, item, given in (
-        ("--checkpoint", "A10", bool(args.checkpoint)),
-        ("--resume", "A10", args.resume),
-        ("--mesh", "A11", args.mesh not in ("", "off")),
-        ("--distributed", "A11", args.distributed),
-    ):
+    for flag, given in (("--mesh", args.mesh not in ("", "off")),
+                        ("--distributed", args.distributed)):
         if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md A11)")
 
     from grample_tpu_torch.monitor import Monitor
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
@@ -110,18 +121,27 @@ def cmd_sample(args) -> int:
         converge_window=args.cwin,
         chains=args.chains,
         chains_per_variant=args.vchains,
+        chain_adds=args.chainadds,
         max_iters=args.maxiters,
         max_secs=args.maxsecs,
         budget=args.budget,
         seed=args.seed,
+        measure=args.measure,
+        adapt_policy=args.adapt_policy,
+        warm_start=not args.no_warm_start,
         anneal_stages=args.anneal,
         rb_mixture=not args.no_rb_mixture,
         trace_path=args.trace,
         experiment=args.experiment,
         verbose=args.verbose,
         mar_out=args.mar_out,
+        checkpoint_path=args.checkpoint,
+        checkpoint_secs=args.checkpoint_secs,
+        resume=args.resume,
+        split_group=args.split_group,
+        reserve_slots=args.reserve,
     )
-    engine = Engine(cfg)  # refuses unported samplers before any work
+    engine = Engine(cfg)  # checks the config before any work
     monitor = None
     if args.addr:
         monitor = Monitor(args.addr)

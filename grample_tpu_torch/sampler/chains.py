@@ -17,9 +17,15 @@ counts, and a var collapsed in any variant takes that variant's estimate
 (first collapsing slot wins): the Rao-Blackwell mixture once it has
 ``RB_MIN_SNAPSHOTS`` snapshots, else the static collapse marginal.
 
-Not ported here: the split group's external donors, transplant and
-warm-marginal init (ROADMAP A9), and the reference's TPU workarounds
-(slot chunking, counted sub-windows, the compile-error fallback).
+Adaptively added variants start from transplanted donor states or from
+independent draws of the merged estimate (``add_variants``); a split
+group's aux group takes RB donor snapshots from its main group's states
+(``rb_accumulate_external``).  Each window's seed is a pure function of
+(seed, step) (``window_seed``), as the reference's ``fold_in(key, step)``,
+so a checkpoint that stores ``_step`` resumes bit for bit.
+
+Not ported: the reference's TPU workarounds (slot chunking, counted
+sub-windows, the compile-error fallback).
 """
 
 from __future__ import annotations
@@ -74,6 +80,15 @@ def _rb_indices(state, slots, rest, strides):
     return (g * strides[:, None, :]).sum(dim=2)
 
 
+def window_seed(seed: int, step: int) -> int:
+    """The int32 seed of window ``step`` of a group seeded ``seed``: a
+    pure function of the pair (the reference derives the window key as
+    ``fold_in(key, step)``, ``chains.py:253-255``)."""
+    word = int(np.random.SeedSequence([int(seed) & (2**64 - 1), int(step)])
+               .generate_state(1)[0])
+    return word - (1 << 32) if word >= (1 << 31) else word
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -83,6 +98,11 @@ def _next_pow2(n: int) -> int:
 
 class ChainGroup:
     """All chains of a run: stacked variants × micro-chains on ``device``."""
+
+    #: adapt_step warm start (see sampler/adaptive.py): full-width collapse
+    #: variants dominate the merged counts, and an independent redraw from
+    #: the merged estimate re-equilibrates them (reference ``:144-148``)
+    adapt_init = "redraw"
 
     def __init__(
         self,
@@ -94,6 +114,7 @@ class ChainGroup:
         caps: Optional[EncodeCaps] = None,
         group_cap: int = 0,
         max_variants: int = MAX_VARIANTS,
+        collapse_headroom: bool = False,
         rb_mixture: bool = True,
     ):
         base_model.check()
@@ -103,13 +124,17 @@ class ChainGroup:
         self.cw = int(converge_window)
         self.seed = int(seed)
         self.max_variants = max_variants
-        # plain groups never mutate the factor graph: no spare factor slots
+        # collapse headroom sizes the caps for max_variants collapse
+        # variants with two spare factor slots per var; plain groups never
+        # mutate the factor graph and get none (reference ``:170-180``)
         self.caps = caps or compute_caps(
-            base_model, group_cap=group_cap, headroom_factors=0
+            base_model,
+            group_cap=group_cap,
+            collapse_headroom=collapse_headroom,
+            slot_hint=max_variants if collapse_headroom else 1,
+            headroom_factors=2 if collapse_headroom else 0,
         )
         check_supported(self.caps)
-        #: window seeds: one int32 per launched window
-        self.gen = torch.Generator().manual_seed(self.seed)
         self.cb = hash_block(self.cpv)
         self._step = 0
 
@@ -156,24 +181,75 @@ class ChainGroup:
     def kdim(self) -> int:
         return self.caps.max_card
 
-    def _next_seed(self) -> int:
-        """Window seed (int32).  Advances ``_step`` as the reference's
-        per-window key fold does, so later host inits line up with it."""
-        self._step += 1
-        return int(torch.randint(-2**31, 2**31, (1,), generator=self.gen,
-                                 dtype=torch.int64))
+    @property
+    def collapse_oa_cap(self) -> int:
+        """Dense bound a collapse variant must meet to join this group
+        (``adapt_step`` passes it to ``is_collapsible``): the sweep takes
+        no gather-bank rows (reference ``:240-247``)."""
+        return self.caps.oa_dense_cap
 
-    def _host_init_state(self, enc: EncodedModel) -> np.ndarray:
-        """Initial [C, V+1] states on the host: free vars uniform, evidence
-        pinned.  The same draws as the reference for the same ``_step``
-        (``chains.py:346-373``)."""
+    def _next_seed(self) -> int:
+        """Advance ``_step`` and return that window's int32 seed."""
+        self._step += 1
+        return window_seed(self.seed, self._step)
+
+    def _host_init_state(
+        self, enc: EncodedModel, warm_marginals: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """Initial [C, V+1] states on the host: free vars uniform, or drawn
+        independently from ``warm_marginals`` [V(+1), K] (the redraw warm
+        start of adaptively added variants); evidence pinned.  The same
+        draws as the reference for the same ``_step`` (``:346-373``)."""
         rng = np.random.default_rng(self._step * 7919 + 13)
         self._step += 1
         cards = np.asarray(enc.cards, dtype=np.int64)  # [V+1]
-        u = rng.random((self.cpv, cards.size))
-        draw = np.floor(u * cards[None, :]).astype(np.int32)
+        v1 = cards.size
+        if warm_marginals is None:
+            u = rng.random((self.cpv, v1))
+            draw = np.floor(u * cards[None, :]).astype(np.int32)
+        else:
+            k = self.kdim
+            probs = np.zeros((v1, k), dtype=np.float64)
+            probs[: warm_marginals.shape[0], : warm_marginals.shape[1]] = warm_marginals
+            valid = np.arange(k)[None, :] < cards[:, None]
+            probs = np.where(valid, np.maximum(probs, 1e-12), 0.0)
+            probs /= probs.sum(axis=1, keepdims=True)
+            cdf = np.cumsum(probs, axis=1)  # [V+1, K]
+            u = rng.random((self.cpv, v1, 1))
+            draw = (u > cdf[None]).sum(axis=2).astype(np.int32)
+            draw = np.minimum(draw, (cards - 1)[None, :]).astype(np.int32)
         fixedv = np.asarray(enc.fixed, dtype=np.int32)
         return np.where(fixedv[None, :] >= 0, fixedv[None, :], draw)
+
+    def _transplant_states(self, enc: EncodedModel, rows: np.ndarray) -> np.ndarray:
+        """[C, V+1] initial states subsampled from donor chain states
+        ``rows`` [M, V+1]: without replacement when M > C, with it when
+        M < C; evidence re-pinned (reference ``:375-396``).  Donor chains
+        are exchangeable, so the subsample keeps their joint law."""
+        if rows.ndim != 2 or rows.shape[1] != self.v1:
+            raise ValueError(f"init_states shape {rows.shape} != (M, {self.v1})")
+        rng = np.random.default_rng(self._step * 7919 + 13)
+        self._step += 1
+        if rows.shape[0] < self.cpv:
+            pick = rng.integers(0, rows.shape[0], size=self.cpv)
+        elif rows.shape[0] > self.cpv:
+            pick = rng.choice(rows.shape[0], size=self.cpv, replace=False)
+        else:
+            pick = np.arange(self.cpv)
+        st = rows[pick].astype(np.int32)
+        fixedv = np.asarray(enc.fixed, dtype=np.int32)
+        return np.where(fixedv[None, :] >= 0, fixedv[None, :], st)
+
+    def plain_slot_states(self) -> Optional[np.ndarray]:
+        """Host copy [C, V+1] of the first base-model (plain) slot's chain
+        states, the transplant donor of adaptively added collapse
+        variants; None when every slot is collapsed (``:398-408``)."""
+        v = self.caps.num_vars
+        base_col = self.base.collapsed[:v]
+        for slot, mv in enumerate(self.variants):
+            if not (mv.collapsed[:v] & ~base_col).any():
+                return self.state[slot].cpu().numpy()
+        return None
 
     def _encode_grown(self, model: DiscreteModel) -> tuple:
         """``encode_model`` with caps growth; returns (enc, grew).
@@ -230,13 +306,23 @@ class ChainGroup:
             n = min(old_tot.shape[0], self.slot_cap)
             self.totals[:n] = old_tot[:n]
 
-    def add_variant(self, model: DiscreteModel) -> int:
+    def add_variant(self, model: DiscreteModel, burn_sweeps: int = 0,
+                    warm_marginals: Optional[np.ndarray] = None,
+                    init_states: Optional[np.ndarray] = None) -> int:
         """Add a model variant (a logical chain); returns its slot index."""
-        return self.add_variants([model])[0]
+        return self.add_variants([model], burn_sweeps, warm_marginals, init_states)[0]
 
-    def add_variants(self, models: List[DiscreteModel]) -> List[int]:
+    def add_variants(self, models: List[DiscreteModel], burn_sweeps: int = 0,
+                     warm_marginals: Optional[np.ndarray] = None,
+                     init_states: Optional[np.ndarray] = None) -> List[int]:
         """Add variants with one device update per stack key, growing the
-        caps (and restacking) when one does not fit them."""
+        caps (and restacking) when one does not fit them.
+
+        Each new slot's chains start from ``init_states`` [M, V+1]
+        (transplanted donor rows, see ``_transplant_states``), else from
+        independent draws of ``warm_marginals``, else uniform.
+        ``burn_sweeps`` uncounted sweeps then run over the whole group
+        (reference ``chains.py:465-600``)."""
         if not models:
             return []
         if self.num_variants + len(models) > self.max_variants:
@@ -260,9 +346,16 @@ class ChainGroup:
             fresh = sweep_tensors(stack_variants(new_encs), self.device)
             for k, v in fresh.items():
                 self.kstack[k][slots] = v
-        st = np.stack([self._host_init_state(enc) for enc in new_encs])
+        st = np.stack([
+            self._transplant_states(enc, np.asarray(init_states))
+            if init_states is not None
+            else self._host_init_state(enc, warm_marginals)
+            for enc in new_encs
+        ])
         self.state[slots] = torch.as_tensor(st, device=self.device)
         self.totals[slots] = 0.0
+        if burn_sweeps > 0:
+            self.burn(burn_sweeps)
         return slots
 
     # ---- advancing -------------------------------------------------------
@@ -279,18 +372,17 @@ class ChainGroup:
 
     def warmup(self):
         """Build and first-launch the sweep (one counted and one uncounted
-        sweep), then restore the exact prior state, window and seeds.
+        sweep), then restore the exact prior state, window and step.
         Engines call it before anchoring time budgets."""
         if self.slot_cap == 0:
             return
-        step, gen_state = self._step, self.gen.get_state()
+        step = self._step
         state, halves = self.state.clone(), self.halves.clone()
         self._advance_fn(1, 0, count=True)
         self._advance_fn(1, 1, count=False)
         self.halves.sum().item()  # sync: wait out first-launch overheads
         self.state, self.halves = state, halves
         self._step = step
-        self.gen.set_state(gen_state)
 
     def burn(self, sweeps: int):
         """Uncounted sweeps for all chains (burn-in)."""
@@ -357,6 +449,12 @@ class ChainGroup:
             self.totals += d
         self._pending.clear()
 
+    def restore_device_state(self, state, halves):
+        """Place checkpointed chain state [Ncap, C, V+1] and window halves
+        [Ncap, 2, C, V+1, K] (int32, any device or numpy) on ``device``."""
+        self.state = torch.as_tensor(state, dtype=torch.int32, device=self.device)
+        self.halves = torch.as_tensor(halves, dtype=torch.int32, device=self.device)
+
     # ---- estimation ------------------------------------------------------
     def rb_accumulate(self) -> None:
         """Take one Rao-Blackwell snapshot for every collapsed var.
@@ -386,7 +484,7 @@ class ChainGroup:
         if not own:
             return
         donors = [(p, int(cv)) for cv in np.nonzero(col_any)[0] for p in plain]
-        probs = self._rb_snapshot(own + donors)
+        probs = self._rb_snapshot(self.state, own + donors)
         for key, pr in zip(own, probs[: len(own)]):
             if key in self._rb_sum:
                 self._rb_sum[key] = self._rb_sum[key] * RB_DECAY + pr
@@ -404,6 +502,25 @@ class ChainGroup:
             # applies once per tick, not between sibling slots
             self._rbp_accum(var, np.mean(prs, axis=0), self.cpv * len(prs))
 
+    def rb_accumulate_external(self, states, chains_per_slot: int,
+                               n_slots: int = 1) -> None:
+        """Take plain-slot donor snapshots from ANOTHER group's base-model
+        chain states ``states`` [N >= n_slots, C, V+1]: the split group
+        feeds its full-width main slots here, so the aux group's collapsed
+        vars follow the main ensemble (reference ``:863-882``)."""
+        if not self.rb_mixture or self.num_variants == 0:
+            return
+        v = self.caps.num_vars
+        col_vars = np.nonzero(self.collapsed_any() & ~self.base.collapsed[:v])[0]
+        pairs = [(s, int(cv)) for cv in col_vars for s in range(n_slots)]
+        if not pairs:
+            return
+        per_var: dict = {}
+        for (_s, var), pr in zip(pairs, self._rb_snapshot(states, pairs)):
+            per_var.setdefault(var, []).append(pr)
+        for var, prs in per_var.items():
+            self._rbp_accum(var, np.mean(prs, axis=0), chains_per_slot * len(prs))
+
     def _rbp_accum(self, var: int, probs: np.ndarray, weight: float):
         if var in self._rbp_sum:
             self._rbp_sum[var] = self._rbp_sum[var] * RB_DECAY + probs * weight
@@ -414,9 +531,10 @@ class ChainGroup:
             self._rbp_w[var] = float(weight)
             self._rbp_snaps[var] = 1
 
-    def _rb_snapshot(self, pairs) -> List[np.ndarray]:
+    def _rb_snapshot(self, states, pairs) -> List[np.ndarray]:
         """One RB snapshot per (slot, var) pair: the normalized base
-        conditional of ``var`` averaged over that slot's chains."""
+        conditional of ``var`` averaged over the chains of slot ``slot``
+        of ``states`` [N, C, V+1]."""
         infos = []
         for _slot, var in pairs:
             if var not in self._rb_cond:
@@ -429,9 +547,9 @@ class ChainGroup:
         for i, (r, s, _c) in enumerate(infos):
             rest[i, : r.size] = r
             strides[i, : r.size] = s
-        dev = self.state.device
+        dev = states.device
         idx = _rb_indices(
-            self.state,
+            states,
             torch.as_tensor(np.array([s for s, _ in pairs]), device=dev),
             torch.as_tensor(rest, device=dev),
             torch.as_tensor(strides, device=dev),

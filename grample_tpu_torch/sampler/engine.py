@@ -1,25 +1,30 @@
-"""Run orchestration for chromatic Gibbs (``sample -s simple`` and
-``sample -s collapsed``).
+"""Run orchestration for chromatic Gibbs (``sample -s simple``,
+``-s collapsed`` and ``-s adaptive``).
 
 Counterpart of ``grample_tpu.sampler.engine`` (reference
-``cmd/root.go:309-719``): load model + evidence + solutions, build the
-chain group, burn in, then loop advance → RB snapshot → score under
-time/iteration budgets, and emit the final report, trace records and MAR
-output.
+``cmd/root.go:309-719``): load model + evidence + solutions, build (or
+resume) the chain group, burn in, then loop advance → RB snapshot →
+score → adapt → checkpoint under time/iteration budgets, and emit the
+final report, trace records and MAR output.
 
 ``-s collapsed`` (the reference's random-collapse sampler) builds its
 whole variant set up front: one random collapsible var per slot (the
 same draws as the JAX package for the same seed), and caps measured on
 exactly those variants (``caps_for_variants``).
 
+``-s adaptive`` (the kelly19a estimator) adds collapse variants of the
+worst-converged vars during the first half of the budget
+(``sampler/adaptive.py``).  It runs one ``ChainGroup`` on collapse-headroom
+caps where the sweep takes them, else a ``SplitChainGroup``
+(``_want_split``).
+
 Reference flag units are single-site samples; the engine works in
 *sweeps* (one sweep resamples every free variable once): ``burnin``
 samples ≈ ``burnin / V`` sweeps, and the default burnin 2000·V gives
 2000 sweeps.
 
-Adaptive sampling, device meshes, multi-process runs and checkpoints are
-later slices of the port (ROADMAP.md A9–A11); asking for them raises
-``NotImplementedError``.
+Device meshes and multi-process runs are a later slice of the port
+(ROADMAP.md A11).
 """
 
 from __future__ import annotations
@@ -36,17 +41,31 @@ import numpy as np
 from grample_tpu_torch.metrics import ErrorSuite, error_suite
 from grample_tpu_torch.metrics.divergences import pad_marginals
 from grample_tpu_torch.pgm.discrete import DiscreteModel, norm_marginals
-from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP, caps_for_variants
-from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.ops.sweep import check_supported
+from grample_tpu_torch.pgm.encode import (
+    COLLAPSE_OA_DENSE_CAP,
+    caps_for_variants,
+    compute_caps,
+    encode_model,
+)
+from grample_tpu_torch.sampler import checkpoint
+from grample_tpu_torch.sampler.adaptive import adapt_step
+from grample_tpu_torch.sampler.chains import MAX_VARIANTS, ChainGroup
 from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
+from grample_tpu_torch.sampler.split import SplitChainGroup
 from grample_tpu_torch.uai import load_model, read_mar_file
 
 #: Max seconds of batched device work per engine tick (see the nwin
-#: computation): bounds the scoring cadence when status output is quiet.
+#: computation): bounds the scoring/adapt/RB cadence when status output
+#: is quiet.
 TICK_WORK_SECS = 30.0
 
-#: The ROADMAP.md item that ports each sampler this slice leaves out.
-UNPORTED_SAMPLERS = {"adaptive": "A9"}
+#: Tick budget while adaptation is live: shorter ticks give more adapt
+#: rounds inside the half-budget adapt window (the reference adapts at its
+#: ~5 s scoring cadence, cmd/root.go:498-547).
+ADAPT_TICK_WORK_SECS = 10.0
+
+SAMPLERS = ("simple", "collapsed", "adaptive")
 
 
 @dataclasses.dataclass
@@ -55,18 +74,23 @@ class EngineConfig:
     device: str = "cuda"
     use_evidence: bool = False
     use_solution: bool = False
-    sampler: str = "simple"  # simple | collapsed
+    sampler: str = "simple"  # simple | collapsed | adaptive
     burnin: int = -1  # single-site samples; <0 → 2000·V (2000 sweeps)
     converge_window: int = 0  # single-site samples; <=0 → burnin
     chains: int = 0  # logical chains (variant slots); <=0 → 2
     chains_per_variant: int = 64  # micro-chains per slot
+    chain_adds: int = 1  # new chains per adapt step (adaptive only)
     max_iters: int = 0  # site updates; 0 = unlimited, <0 → 20000·V
     max_secs: float = 300.0
     # "sampling": max_secs bounds the clock from after the first kernel
-    # launch (build and first-launch cost excluded); "wall": the
+    # launch (build, first launch and the aux group's build excluded, and
+    # adapt steps' host time beyond 0.5 s each compensated); "wall": the
     # reference's literal contract, max_secs bounds wall clock from start
     budget: str = "sampling"
     seed: int = 0  # <1 → wall clock
+    measure: str = "hellinger"
+    adapt_policy: str = "worst"  # worst | ref-tail
+    warm_start: bool = True
     # tempered burn-in stages (0 = plain uniform-init burn, the
     # reference-faithful quench; see ChainGroup.burn_annealed)
     anneal_stages: int = 20
@@ -78,6 +102,17 @@ class EngineConfig:
     verbose: bool = False
     status_secs: float = 5.0
     mar_out: str = ""  # write final MAR solution here
+    checkpoint_path: str = ""
+    checkpoint_secs: float = 60.0
+    resume: bool = False
+    max_variants: int = MAX_VARIANTS
+    # pre-size variant slots (0 = just the starting chains, or for
+    # adaptive runs max_variants when their footprint is small)
+    reserve_slots: int = 0
+    # split execution for adaptive runs: "auto" = a SplitChainGroup when
+    # the sweep takes the plain caps but refuses the collapse-headroom
+    # caps (see _want_split); "on"/"off" force it
+    split_group: str = "auto"
 
     def resolve_seed(self) -> int:
         if self.seed >= 1:
@@ -101,6 +136,7 @@ class RunResult:
     score_vs_merlin: Optional[ErrorSuite] = None
     convergence: Optional[Dict[str, np.ndarray]] = None
     samples_per_sec: float = 0.0
+    aux_secs: float = 0.0  # split execution: wall spent on the aux group
 
 
 class Engine:
@@ -112,12 +148,13 @@ class Engine:
         log: Callable[[str], None] = print,
         monitor=None,
     ):
-        if cfg.sampler in UNPORTED_SAMPLERS:
-            raise NotImplementedError(
-                f"sampler {cfg.sampler!r} is not ported yet (ROADMAP.md "
-                f"{UNPORTED_SAMPLERS[cfg.sampler]}); use -s simple or -s collapsed")
-        if cfg.sampler not in ("simple", "collapsed"):
+        if cfg.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler: {cfg.sampler}")
+        if cfg.sampler != "adaptive" and cfg.chain_adds != 1:
+            raise ValueError(
+                f"sampler is not adaptive: chain_adds={cfg.chain_adds} makes no sense")
+        if cfg.split_group not in ("auto", "on", "off"):
+            raise ValueError(f"unknown split_group {cfg.split_group!r}")
         if cfg.budget not in ("sampling", "wall"):
             raise ValueError(f"unknown budget mode {cfg.budget!r}")
         if cfg.experiment and not cfg.trace_path:
@@ -172,7 +209,8 @@ class Engine:
             else max(2, math.ceil(cfg.converge_window / v))
         )
         cw_sweeps = max(2, cw_sweeps)
-        n_slots = max(1, cfg.chains if cfg.chains > 0 else 2)
+        n_slots = cfg.chains if cfg.chains > 0 else 2
+        n_slots = max(2 if cfg.sampler == "adaptive" else 1, n_slots)
         # negative maxiters derives 20000·|vars|; 0 means unlimited
         max_iters = 20000 * v if cfg.max_iters < 0 else cfg.max_iters
 
@@ -182,25 +220,56 @@ class Engine:
             f"maxsecs={cfg.max_secs} maxiters={max_iters} device={cfg.device}"
         )
 
-        variants = [model] * n_slots
-        caps = None
-        if cfg.sampler == "collapsed":
-            variants = self._collapse_variants(model, n_slots, seed)
-            caps = caps_for_variants(variants, slot_hint=n_slots)
-        group = ChainGroup(
-            model, chains_per_variant=cfg.chains_per_variant,
-            converge_window=cw_sweeps, device=cfg.device, seed=seed,
-            caps=caps, rb_mixture=cfg.rb_mixture,
-        )
-        self.log(f"Creating chains and performing burn-in ({burn_sweeps} sweeps)")
-        group.reserve(n_slots)
-        group.add_variants(variants)
-        group.warmup()  # wall mode: the first launch runs ON the clock
-        t_clock = t_start if cfg.budget == "wall" else time.time()
-        if cfg.anneal_stages > 0:
-            group.burn_annealed(burn_sweeps, cfg.anneal_stages)
+        adaptive = cfg.sampler == "adaptive"
+        prior_runtime = 0.0
+        if cfg.resume and cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+            group, meta = checkpoint.load_checkpoint(
+                cfg.checkpoint_path, model, make_group=self._resume_factory(cfg),
+                device=cfg.device)
+            cw_sweeps = group.cw
+            prior_runtime = float(meta.get("runtime", 0.0))
+            self.log(
+                f"RESUMED from {cfg.checkpoint_path}: {group.num_variants} "
+                f"chains, {group.total_samples:,} samples, "
+                f"{group.total_sweeps} sweeps, {prior_runtime:.1f}s spent"
+            )
+            group.warmup()  # first launch off the budget clock
+            if adaptive and isinstance(group, SplitChainGroup) \
+                    and prior_runtime < cfg.max_secs / 2:
+                # the aux group is still to be built when the snapshot
+                # predates the first collapse: build it here, as a fresh
+                # run does, not on the clock at the first adapt step
+                group.prewarm_aux()
+            t_clock = t_start if cfg.budget == "wall" else time.time()
         else:
-            group.burn(burn_sweeps)
+            variants = [model] * n_slots
+            caps = None
+            if cfg.sampler == "collapsed":
+                variants = self._collapse_variants(model, n_slots, seed)
+                caps = caps_for_variants(variants, slot_hint=n_slots)
+            group = self._group_factory(cfg)(
+                model, chains_per_variant=cfg.chains_per_variant,
+                converge_window=cw_sweeps, seed=seed, caps=caps,
+                collapse_headroom=adaptive, rb_mixture=cfg.rb_mixture,
+            )
+            self.log(f"Creating chains and performing burn-in ({burn_sweeps} sweeps)")
+            reserve = max(n_slots, cfg.reserve_slots)
+            if adaptive and cfg.reserve_slots == 0:
+                # reserve every slot up front when the footprint is small:
+                # each pow2 slot growth otherwise restacks on the clock
+                reserve = max(reserve, self._auto_reserve(cfg, group))
+            group.reserve(reserve)
+            group.add_variants(variants)
+            group.warmup()  # wall mode: the first launch runs ON the clock
+            if adaptive and isinstance(group, SplitChainGroup):
+                # the aux group's build and first launch, before the
+                # sampling clock anchors (wall mode keeps it on the clock)
+                group.prewarm_aux()
+            t_clock = t_start if cfg.budget == "wall" else time.time()
+            if cfg.anneal_stages > 0:
+                group.burn_annealed(burn_sweeps, cfg.anneal_stages)
+            else:
+                group.burn(burn_sweeps)
 
         if self.monitor:
             self.monitor.update(
@@ -214,10 +283,17 @@ class Engine:
 
         # ---- main loop --------------------------------------------------
         # budgets anchor at t_clock (burn-in included, as the reference)
-        stop_time = t_clock + max(0.0, cfg.max_secs)
+        # and continue across a resume: the prior runtime is spent
+        stop_time = t_clock + max(0.0, cfg.max_secs - prior_runtime)
         next_status = t_clock + cfg.status_secs / 2
+        no_adapt_time = t_clock + max(0.0, cfg.max_secs / 2 - prior_runtime)
+        next_checkpoint = t_clock + cfg.checkpoint_secs
+        keep_adapting = adaptive
         keep_working = True
         score = None
+        # budget-clock compensation for adapt steps' host time (see below),
+        # bounded so the run cannot pass about twice its budget
+        comp_left = 0.0 if cfg.budget == "wall" else max(60.0, cfg.max_secs)
         win_time = None  # EMA: measured seconds per counted window
         while keep_working:
             # Launch a BATCH of windows with deferred count deltas (no host
@@ -227,7 +303,8 @@ class Engine:
             if win_time is None:
                 nwin = 1
             else:
-                budget = min(cfg.status_secs, TICK_WORK_SECS,
+                budget = min(cfg.status_secs,
+                             ADAPT_TICK_WORK_SECS if keep_adapting else TICK_WORK_SECS,
                              max(stop_time - time.time(), 0.25))
                 nwin = max(1, min(1024, int(budget / max(win_time, 1e-4))))
             t_w0 = time.time()
@@ -275,8 +352,39 @@ class Engine:
                 if now > next_status:
                     next_status = now + cfg.status_secs
 
+            if keep_adapting and now > no_adapt_time:
+                self.log("STOPPING ADAPTATION")
+                keep_adapting = False
+            if keep_working and keep_adapting:
+                t_adapt = time.time()
+                added = adapt_step(group, cfg.chain_adds, measure=cfg.measure,
+                                   policy=cfg.adapt_policy, warm_start=cfg.warm_start)
+                if added:
+                    # an adapt step's host work (collapse, encode, stacking,
+                    # the new slots' burn) costs the reference milliseconds
+                    # (cmd/root.go:542-547): under --budget sampling the
+                    # clock is extended by its time beyond 0.5 s
+                    dt = time.time() - t_adapt
+                    comp = min(comp_left, max(0.0, dt - 0.5))
+                    comp_left -= comp
+                    stop_time += comp
+                    no_adapt_time += comp
+                    self.log(
+                        f"ADAPT: {group.num_variants} chains "
+                        f"(+{len(added)}: collapsed vars {added}) in {dt:.3f} s"
+                    )
+
+            if cfg.checkpoint_path and time.time() > next_checkpoint:
+                self.save_checkpoint(group, prior_runtime + (time.time() - t_clock))
+                next_checkpoint = time.time() + cfg.checkpoint_secs
+
         # ---- final ------------------------------------------------------
         runtime = time.time() - t_clock
+        if isinstance(group, SplitChainGroup) and group.aux_ticks:
+            self.log(
+                f"aux group: {group.aux_ticks} ticks, {group.aux_tick_sweeps} "
+                f"sweeps ({group.aux_tick_sweeps / group.aux_ticks:.1f} per tick), "
+                f"{group.aux_secs:.3f} s")
         merged = group.merged_marginals()
         final = norm_marginals(merged, model.cards)
         self.log("DONE")
@@ -291,6 +399,7 @@ class Engine:
             variants=group.num_variants,
             collapsed=sorted(int(x) for x in np.nonzero(group.collapsed_any())[0]),
             samples_per_sec=group.total_samples / max(runtime, 1e-9),
+            aux_secs=float(getattr(group, "aux_secs", 0.0)),
         )
 
         if solution is not None:
@@ -431,6 +540,7 @@ class Engine:
                     "variants": result.variants,
                     "collapsed": result.collapsed,
                     "samples_per_sec": result.samples_per_sec,
+                    "aux_secs": result.aux_secs,
                     "final_score": result.final_score.as_dict() if result.final_score else None,
                 }
             )
@@ -447,6 +557,80 @@ class Engine:
                 }
             )
         )
+
+    # ------------------------------------------------------------------
+    def _group_factory(self, cfg: EngineConfig):
+        """Factory for fresh runs and resume: a ``SplitChainGroup`` for
+        adaptive runs that ``_want_split``, else a ``ChainGroup``.  The
+        caller's keywords (the shapes a resume restores) win."""
+
+        def make(model, **kw):
+            kw.setdefault("max_variants", cfg.max_variants)
+            kw.setdefault("device", cfg.device)
+            if cfg.sampler == "adaptive" and self._want_split(cfg, model):
+                self.log("split group: plain slots on plain caps + "
+                         "collapse slots on aux caps")
+                kw.pop("caps", None)
+                return SplitChainGroup(model, **kw)
+            return ChainGroup(model, **kw)
+
+        return make
+
+    def _resume_factory(self, cfg: EngineConfig):
+        """Factory for a resumed non-split snapshot.  A ``-s collapsed``
+        snapshot's variant set is fixed, so its group takes caps measured
+        on those variants (``caps_for_variants``), as the fresh run did:
+        collapse-headroom caps, which the reference rebuilds, need not
+        pass the sweep's gate on wide nets."""
+        if cfg.sampler != "collapsed":
+            return self._group_factory(cfg)
+        variants = checkpoint.snapshot_variants(checkpoint.read_meta(cfg.checkpoint_path))
+
+        def make(model, **kw):
+            kw["caps"] = caps_for_variants(variants, slot_hint=len(variants))
+            kw["collapse_headroom"] = False
+            return self._group_factory(cfg)(model, **kw)
+
+        return make
+
+    @staticmethod
+    def _auto_reserve(cfg: EngineConfig, group) -> int:
+        """Slots to pre-reserve for an adaptive run: ``max_variants`` when
+        the full-capacity footprint (encodings + state + window halves)
+        fits in 1 GiB, else 0 (lazy pow2 growth).  A split group sizes its
+        own reserve (reference ``engine.py:643-666``)."""
+        if isinstance(group, SplitChainGroup):
+            return 0
+        enc = encode_model(group.base, group.caps)
+        enc_bytes = sum(np.asarray(a).nbytes for a in enc.arrays().values())
+        cpv, v1, k = group.cpv, group.v1, group.kdim
+        per_slot = enc_bytes + cpv * v1 * 4 + 2 * cpv * v1 * k * 4
+        return cfg.max_variants if per_slot * cfg.max_variants <= (1 << 30) else 0
+
+    @staticmethod
+    def _want_split(cfg: EngineConfig, model) -> bool:
+        """Split execution when the sweep takes the model's plain caps but
+        refuses its collapse-headroom caps (``check_supported``; the
+        reference asks its kernel's ``pallas_eligible`` the same question,
+        ``engine.py:668-684``).  ``split_group`` "on"/"off" overrides."""
+        if cfg.split_group != "auto":
+            return cfg.split_group == "on"
+        try:
+            check_supported(compute_caps(model, headroom_factors=0))
+        except ValueError:
+            return False
+        try:
+            check_supported(compute_caps(
+                model, collapse_headroom=True, slot_hint=cfg.max_variants,
+                headroom_factors=2))
+        except ValueError:
+            return True
+        return False
+
+    def save_checkpoint(self, group, runtime: float = 0.0):
+        checkpoint.save_checkpoint(self.cfg.checkpoint_path, group, self.cfg,
+                                   runtime=runtime)
+        self.log(f"checkpoint -> {self.cfg.checkpoint_path}")
 
 
 def _neglog2(x: float) -> float:

@@ -1,6 +1,7 @@
 """The CUDA sweep kernel on the card, against its plain PyTorch version,
-at the plain models' widths and at the wide local tables of collapse
-variants (64 to 1024 rows, scopes up to 11).
+at the plain models' widths, at the wide local tables of collapse
+variants (64 to 1024 rows, scopes up to 11) and on collapse-headroom
+encodings; the adaptive sampler and kill-and-resume on the card.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on a GPU machine that has
@@ -19,8 +20,11 @@ from grample_tpu_torch.metrics import hellinger
 from grample_tpu_torch.ops import gibbs_cuda, sweep
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.pgm.exact import exact_marginals
+from grample_tpu_torch.sampler.adaptive import adapt_step
 from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
 from grample_tpu_torch.sampler.collapse import collapse_var
+from grample_tpu_torch.sampler.split import AUX_CHAINS, SplitChainGroup, aux_caps
 
 from tests import torch_models
 
@@ -157,3 +161,85 @@ def test_chain_group_on_card_vs_exact(cuda_device, name):
     assert h.max() < 5.0 / np.sqrt(8 * 2048 * 400 / 8) + 1.5e-3, h
     psrf = g.convergence()
     assert np.isfinite(psrf).all() and (psrf[m.fixed >= 0] == 1.0).all()
+
+
+def _headroom_encs(case):
+    """Collapse-headroom encodings: the shared test cases, or 8 collapse
+    variants of the Promedus-shaped net at ``aux_caps`` (NVp 4200, local
+    tables of 256 rows: the split group's aux encoding)."""
+    if case != "promedus_aux":
+        variants, caps, _ = torch_models.headroom_variants(port_pgm, case)
+    else:
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+        m.apply_evidence(evidence)
+        caps = aux_caps(m)
+        assert caps.oa_cap == 256 and caps.num_rows == 4200
+        variants = [collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
+    sweep.check_supported(caps)
+    return [port_encode.encode_model(v, caps) for v in variants]
+
+
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("case", ["grid4", "rand8", "star8_aux", "promedus_aux"])
+def test_headroom_kernel_matches_plain_on_card(cuda_device, case, count):
+    """Empty colour groups, dead spare incidences and long tails: the
+    kernel against its plain version on the encodings adaptive runs use."""
+    c = 2 * AUX_CHAINS if case == "promedus_aux" else 4096
+    _kernel_vs_plain(_headroom_encs(case), cuda_device, c, count)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_adaptive_group_on_card_vs_exact(cuda_device, split):
+    """Two plain slots plus adaptively collapsed variants (a single group on
+    headroom caps, or the split group), on the card through the kernel:
+    every marginal within 5 sigma of exact, collapsed vars pinned in PSRF."""
+    m = torch_models.build(port_pgm, "grid4_evid")
+    truth = exact_marginals(m)
+    if split:
+        g = SplitChainGroup(m, chains_per_variant=2048, converge_window=50,
+                            device=cuda_device, seed=7)
+    else:
+        g = ChainGroup(m, chains_per_variant=2048, converge_window=50, device=cuda_device,
+                       seed=7, collapse_headroom=True)
+    g.add_variants([m, m])
+    before = gibbs_cuda.gibbs_window.launches
+    g.burn(50)
+    g.advance()
+    added = adapt_step(g, 2) + adapt_step(g, 2)
+    assert len(added) == 4 and g.num_variants == 6
+    for _ in range(8):
+        g.advance(defer=True)
+        g.flush()
+        g.rb_accumulate()
+    assert gibbs_cuda.gibbs_window.launches > before + 9
+    h = hellinger(g.merged_marginals(), truth, m.cards, m.fixed)
+    # >= 4096 plain chains x 400 counted sweeps on a 4x4 grid mixing
+    # within ~8 sweeps, plus at most 1.5e-3 of bias from the uniform seeds
+    assert h.max() < 5.0 / np.sqrt(8 * 4096 * 400 / 8) + 1.5e-3, h
+    assert (g.convergence()[added] == 1.0).all()
+
+
+def test_kill_and_resume_bit_exact_on_card(cuda_device, tmp_path):
+    """Two uninterrupted windows on the card equal one window, a save, a
+    load and one window: state, halves and totals bit for bit."""
+    m = torch_models.build(port_pgm, "grid4_evid")
+
+    def fresh():
+        g = ChainGroup(m, chains_per_variant=4096, converge_window=20, device=cuda_device,
+                       seed=9)
+        g.add_variants([m, m])
+        g.burn(10)
+        g.advance()
+        return g
+
+    a = fresh()
+    a.advance()
+    b = fresh()
+    path = str(tmp_path / "kill.npz")
+    save_checkpoint(path, b)
+    del b
+    b2, _ = load_checkpoint(path, m, device=cuda_device)
+    b2.advance()
+    assert torch.equal(a.state, b2.state) and torch.equal(a.halves, b2.halves)
+    np.testing.assert_array_equal(a.totals, b2.totals)
+    assert (a.total_samples, a.total_sweeps) == (b2.total_samples, b2.total_sweeps)

@@ -1,5 +1,5 @@
-"""The whole slice: ``sample -s simple`` and ``sample -s collapsed``
-through the port's Engine and CLI, held against the exact marginals, one
+"""``sample -s simple`` and ``sample -s collapsed`` through the port's
+Engine and CLI, held against the exact marginals, one
 reference Engine run, and the reference's collapse selection."""
 
 import json
@@ -113,9 +113,6 @@ def test_maxiters_and_budget_modes(tmp_path, budget):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["-s", "adaptive"], "A9"),
-    (["--checkpoint", "ck.npz"], "A10"),
-    (["--resume"], "A10"),
     (["--mesh", "auto"], "A11"),
     (["--distributed"], "A11"),
 ])

@@ -2,6 +2,8 @@
 the CPU), and its gate.  The CUDA kernel's own tests are in
 ``tests/test_torch_cuda.py``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -232,3 +234,67 @@ def test_hash_block():
     assert sweep.hash_block(128) == 128
     assert sweep.hash_block(96) == 32
 
+
+
+@pytest.mark.parametrize("case,sweeps,count", [
+    ("grid4", 2, True),
+    ("grid4", 1, False),
+    ("rand8", 2, True),
+    ("star8_aux", 2, True),
+])
+def test_headroom_window_matches_pallas_kernel(case, sweeps, count):
+    """Collapse-headroom encodings (empty colour groups, dead spare
+    incidences, a long evidence/collapsed tail): the port encodes them
+    array for array as the reference does, and its window agrees with
+    the reference kernel (interpret mode) as on plain encodings.  The
+    reference kernel reads base indices from the matmul mode's ``sw_wbase``
+    only, so ``aux_caps``' rowgather encodings reach it in matmul mode
+    (every other array is the same)."""
+    variants, caps, m = torch_models.headroom_variants(ref_pgm, case)
+    pvariants, pcaps, _ = torch_models.headroom_variants(port_pgm, case)
+    assert dataclasses.asdict(pcaps) == {**dataclasses.asdict(caps), "base_mode": "rowgather"}
+    sweep.check_supported(pcaps)
+    encs = [ref_encode.encode_model(v, dataclasses.replace(caps, base_mode="matmul"))
+            for v in variants]
+    for pv, v, enc in zip(pvariants, variants, encs):
+        want = ref_encode.encode_model(v, caps).arrays()
+        for key, arr in port_encode.encode_model(pv, pcaps).arrays().items():
+            np.testing.assert_array_equal(arr, want[key], err_msg=key)
+            if key != "sw_wbase":
+                np.testing.assert_array_equal(arr, enc.arrays()[key], err_msg=key)
+    real = [np.abs(e.sw_local_tables).max(axis=(3, 4)) > 0 for e in encs]  # [NC, G, F]
+    assert any(not r.any(axis=(1, 2))[-1] for r in real), "no empty colour group"
+    assert all((~r[e.color_mask]).any() for r, e in zip(real, encs)), "no dead incidence"
+    n, chains = len(encs), 128
+    rng = np.random.default_rng(5)
+    draw = np.floor(rng.random((n, chains, m.num_vars + 1))
+                    * np.stack([e.cards for e in encs])[:, None]).astype(np.int32)
+    fixed = np.stack([e.fixed for e in encs])[:, None]
+    state = np.where(fixed >= 0, fixed, draw).astype(np.int32)
+    dims = pal_bank_dims(encs)
+    pal = {k: jnp.asarray(v) for k, v in pallas_stack(encs, dims).items()}
+    halves = np.zeros((n, 2, chains, m.num_vars + 1, caps.max_card), np.float32)
+    key = jax.random.key(11)
+    seed = int(jax.random.bits(key, dtype=jnp.uint32).astype(jnp.int32))
+    ref_state, ref_halves = advance_chains_pallas(
+        pal, jnp.asarray(state), jnp.asarray(halves), key, sweeps, sweeps // 2,
+        count=count, cb=128, dims=dims)
+    ref_state, ref_halves = np.asarray(ref_state), np.asarray(ref_halves)
+
+    kst = encoding_from_reference(ref_encode.stack_variants(encs), "cpu")
+    st, hv = chains_from_reference(state, halves, "cpu")
+    got_state, got_halves = sweep.advance_chains(
+        kst, st, hv, seed, sweeps, sweeps // 2, count=count, cb=128)
+    got_state, got_halves = got_state.numpy(), got_halves.numpy()
+
+    free = np.stack([v.free_mask for v in variants])  # [N, V]
+    agree = got_state[:, :, :-1] == ref_state[:, :, :-1]
+    assert agree.transpose(0, 2, 1)[free].mean() >= 0.999
+    np.testing.assert_array_equal(got_state.transpose(0, 2, 1)[:, :-1][~free],
+                                  state.transpose(0, 2, 1)[:, :-1][~free])
+    np.testing.assert_array_equal(got_state[:, :, -1], 0)  # sentinel
+    same = agree.all(axis=0)
+    np.testing.assert_array_equal(
+        got_halves[:, :, :, :-1][:, :, same], ref_halves[:, :, :, :-1][:, :, same])
+    assert got_halves.sum() == (sweeps * chains * int(free.sum()) if count else 0)
+    assert got_halves[:, :, :, :-1].transpose(0, 3, 1, 2, 4)[~free].sum() == 0

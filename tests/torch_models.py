@@ -87,6 +87,23 @@ def wide_factor(pgm, v, seed):
     return pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
 
 
+def flip_symmetric(pgm, side=3, seed=5):
+    """Binary grid with uniform unaries and pairwise tables ``[a, b, b, a]``:
+    flipping every var leaves the joint unchanged, so every marginal, and
+    every collapsed var's static collapse marginal, is exactly 0.5 (it
+    stands in for the reference suite's ``deterministic.uai``)."""
+    rng = np.random.default_rng(seed)
+    v = side * side
+    factors = [pgm.Factor(f"u{i}", [i], np.ones(2)) for i in range(v)]
+    for r in range(side):
+        for c in range(side):
+            i = r * side + c
+            for j in ([i + 1] if c + 1 < side else []) + ([i + side] if r + 1 < side else []):
+                a, b = rng.random(2) + 0.2
+                factors.append(pgm.Factor(f"p{i}_{j}", [i, j], np.array([a, b, b, a])))
+    return pgm.DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
+
+
 def promedus_like(pgm, seed, v=916, window=40, evidence_frac=0.05):
     """Promedus-shaped Bayes net (the UAI Promedus_11-19 family: 374-916
     binary vars, one CPT per var with at most 2 parents, max scope 3,
@@ -121,6 +138,7 @@ MODELS = {
     "star10": (lambda pgm: star(pgm, 9, seed=11, lo=0.2), {}),
     "star6_card3_evid": (lambda pgm: star(pgm, 5, seed=5, lo=0.2, unary=True, card=3), {5: 1}),
     "full8_evid": (lambda pgm: full(pgm, 8, seed=13), {7: 1}),
+    "flip3": (lambda pgm: flip_symmetric(pgm, 3), {}),
 }
 
 #: collapse variants with wide local tables: name -> (MODELS entry,
@@ -165,3 +183,26 @@ def widest_collapsible(pgm, m, n, oa_cap=256):
     ok = [v for v in range(m.num_vars)
           if collapse.is_collapsible(m, v, blankets[v], oa_cap=oa_cap)]
     return sorted(ok, key=lambda v: (-len(blankets[v]), v))[:n]
+
+
+def headroom_variants(pgm, case):
+    """A collapse-headroom encoding's variants and caps, built with
+    ``pgm``'s own package: (variants, caps, base model).
+
+    ``grid4``/``rand8``: the single adaptive group's caps (collapse
+    headroom for 128 slots, two spare factor slots per var, two extra
+    colour groups, 16 extra tail rows), 2 plain slots + 2 collapse
+    variants.  ``star8_aux``: the split group's ``aux_caps``, 2 collapse
+    variants of the 8-var star (local tables of 64 rows)."""
+    package = pgm.__name__.rsplit(".", 2)[0]
+    collapse = _collapse(pgm)
+    encode = importlib.import_module(package + ".pgm.encode")
+    name, picks = {"grid4": ("grid4_evid", [0, 6]), "rand8": ("rand8_card4", [2, 4]),
+                   "star8_aux": ("star8", [0, 3])}[case]
+    m = build(pgm, name)
+    collapsed = [collapse.collapse_var(m, v)[0] for v in picks]
+    if case == "star8_aux":
+        split = importlib.import_module(package + ".sampler.split")
+        return collapsed, split.aux_caps(m), m
+    caps = encode.compute_caps(m, collapse_headroom=True, slot_hint=128, headroom_factors=2)
+    return [m, m] + collapsed, caps, m
