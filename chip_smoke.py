@@ -7,13 +7,17 @@ Phases, each printed on its own line; any failure raises and exits
 non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. build the sweep kernel from ``grample_tpu_torch/csrc`` with nvcc;
+  2. build the sweep kernel from ``grample_tpu_torch/csrc`` with nvcc
+     (and print what ``-Xptxas -v`` said of each instance);
   3. the kernel against its plain PyTorch version on the card: a 10x10
      binary grid (100 vars, 280 factors, 3 evidence vars), 2 variants x
-     131072 chains, the same seed and hash width, one sweep, counted and
-     uncounted.  At most 0.1 % of free sites may differ (a draw that sits
-     on a CDF boundary can flip with expf's last bit); count totals must
-     equal sweeps x chains x free vars exactly; evidence rows must stay;
+     131072 chains, the same seed and hash width, one sweep: every form
+     the kernel has (uncounted; counted by reductions; counted in
+     shared-memory counters where they fit; and whichever the wrapper's
+     rule picks).  At most 0.1 % of free sites may differ (a draw that
+     sits on a CDF boundary can flip with expf's last bit); count totals
+     on free rows must equal sweeps x chains x free vars exactly and be 0
+     elsewhere; evidence rows must stay;
   3b. the same for the kernel's wide-table form: 8 collapse variants of a
      Promedus-shaped Bayes net (916 binary vars, CPTs of 0-2 parents, 5 %
      evidence; ``tests/torch_models.py::promedus_like``), its 8 widest
@@ -23,9 +27,8 @@ non-zero:
      (a) the 10x10 grid at the single adaptive group's caps (headroom for
      128 slots, two spare factor slots per var), 2 plain slots + 2
      collapse variants, 4 x 32768 chains; (b) the Promedus-shaped net at
-     the split group's ``aux_caps`` (local tables of 256 rows, 4200 state
-     rows, 32 threads per block), 8 collapse variants picked by ``SEED``,
-     8 x 256 chains;
+     the split group's ``aux_caps`` (local tables of 256 rows, 4200 padded
+     state rows), 8 collapse variants picked by ``SEED``, 8 x 256 chains;
   4. the main path through the CLI: ``sample -s simple`` on a 4x4 grid
      with evidence and an exact ``.MAR``, 2 x 131072 chains; the MAR it
      writes must be within 0.005 max Hellinger of the exact marginals
@@ -47,11 +50,15 @@ non-zero:
      the run of 4d with ``--checkpoint``, stopped by its budget, then
      ``--resume``d: it continues the sample count and the RB weights;
   5. timing (CUDA events; each line names the card and its power limit):
-     the 10x10 grid at 262144 chains, one 256-sweep counted window,
-     kernel and plain; the 8 Promedus-shaped collapse variants at 8 x
-     16384 chains, a 32-sweep counted window on the kernel and a shorter
-     one on both kernel and plain, with occupancy and table bytes; a
-     256-sweep window on 8 plain copies of the net; and an engine run
+     the 10x10 grid at 262144 chains, one 256-sweep window, each kernel
+     form and plain; the headroom encodings of 3c; the 8 Promedus-shaped
+     collapse variants at 8 x 16384 chains, a 32-sweep counted window on
+     the kernel and a shorter one on both kernel and plain; a 256-sweep
+     window on 8 plain copies of the net; for every row its live work
+     (sites, incidences, scope entries, table bytes per variant), the
+     launch's threads, staging, shared-memory bytes, registers, spills
+     and resident blocks per SM, and its bound (``bound_ms``); and an
+     engine run
      ``-s collapsed -c 8 --vchains 16384`` on that net, about 10 s of
      sampling, with its counted site-samples/s and peak device memory;
   5b. the adaptive engine on the Promedus-shaped net (the reference's
@@ -61,7 +68,7 @@ non-zero:
      the sampling clock, aux sweeps per tick, host seconds per adapt
      step, set-up seconds and peak device memory, beside ``-s simple -c 2
      --vchains 8192`` at the same budget;
-  6. a JSON line describing each kernel form, then, last,
+  6. a JSON line describing each kernel form and shape, then, last,
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -74,6 +81,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -105,6 +113,17 @@ COLLAPSED_CHAINS = 32768
 HELL_BOUND = 0.005
 #: sampling-clock budget (s) of the adaptive CLI runs and the 5b runs
 ADAPT_SECS = 30
+#: the card's peaks for ``bound_ms``: device memory rate (H100 SXM data
+#: sheet) and thread instructions per clock (132 SMs x 4 schedulers x 32
+#: lanes); the clock is the card's ``clocks.max.sm``
+PEAK_BYTES_PER_S = 3.35e12
+LANES = 132 * 128
+#: thread instructions of the kernel's inner loops, counted in the SASS
+#: of the binary-card instances (``cuobjdump -sass``): per live site
+#: (list words, mask, two expf, floor, hash, inverse CDF, packed write,
+#: count), per live incidence (list word, table row, adds) and per live
+#: scope entry (list word, packed state read, multiply-add)
+INSTR_PER_SITE, INSTR_PER_INC, INSTR_PER_SCOPE = 110, 14, 9
 
 
 def grid_model(side: int, seed: int):
@@ -131,6 +150,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
 
 
 def check(cond: bool, what: str) -> None:
@@ -229,34 +256,121 @@ def aux_variants():
     return [collapse_var(m, v)[0] for v in picks], aux_caps(m), picks
 
 
-def compare_window(torch, kernel, plain, args, state0, free_rows, n_free, nslot,
-                   chains, cb, label):
-    """One counted and one uncounted sweep through the kernel and the plain
-    version from the same state; returns the largest state difference."""
-    max_err = 0
-    for count in (True, False):
-        sk, ck = kernel(*args, state0.clone(), SEED, 1, 0, count, cb)
-        sp, cp = plain(*args, state0.clone(), SEED, 1, 0, count, cb)
+def kernel_forms(torch, kst, chains, sweeps=1):
+    """(label, counted, counts form, site-parallel) of every kernel form
+    this launch shape has: the wrapper's own pick counted and uncounted;
+    thread per chain, uncounted and with each counts form by name where
+    it fits; site-parallel, uncounted and counted."""
+    from grample_tpu_torch.ops import gibbs_cuda
+
+    forms = [("rule", True, None, None), ("rule, uncounted", False, None, None),
+             ("uncounted", False, None, False),
+             ("reductions", True, gibbs_cuda.COUNT_RED, False),
+             ("site-parallel", True, None, True),
+             ("site-parallel, uncounted", False, None, True)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        gibbs_cuda.plan_launch(kst, chains, True, sweeps, sweeps // 2, sms,
+                               gibbs_cuda.COUNT_SHARED, False)
+        forms.append(("shared counters", True, gibbs_cuda.COUNT_SHARED, False))
+    except ValueError:
+        pass
+    return forms
+
+
+def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label):
+    """One sweep through every form of the kernel and through the plain
+    version from the same state; returns {form label: largest state
+    difference}."""
+    from grample_tpu_torch.ops import gibbs_cuda
+    from grample_tpu_torch.ops.gibbs_torch import window_plain
+    from grample_tpu_torch.ops.sweep import KERNEL_KEYS
+
+    args = [kst[k] for k in KERNEL_KEYS]
+    free = free_rows.bool()
+    errs = {}
+    plain_out = {}
+    for form, count, counts_form, sites in kernel_forms(torch, kst, chains):
+        if count not in plain_out:
+            plain_out[count] = window_plain(*args, state0.clone(), SEED, 1, 0, count, cb)
+        sp, cp = plain_out[count]
+        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb,
+                                         counts_form, sites)
         torch.cuda.synchronize()
-        diff = (sk[:, :nslot] != sp[:, :nslot]) & free_rows[:, :, None]
-        frac = diff.sum().item() / (free_rows.sum().item() * chains)
-        max_err = max(max_err, int((sk - sp).abs().max().item()))
-        check(frac <= MAX_MISMATCH, f"{label} count={count}: {frac:.2e} of free sites differ")
+        diff = (sk[:, :nslot] != sp[:, :nslot]) & free[:, :, None]
+        frac = diff.sum().item() / (free.sum().item() * chains)
+        errs[form] = int((sk - sp).abs().max().item())
+        check(frac <= MAX_MISMATCH, f"{label}, {form}: {frac:.2e} of free sites differ")
         check(torch.equal(sk[:, nslot:], state0[:, nslot:]),
-              f"{label}: kernel wrote a tail (evidence/sentinel) row")
+              f"{label}, {form}: kernel wrote a tail (evidence/sentinel) row")
         check(torch.equal(sp[:, nslot:], state0[:, nslot:]),
               f"{label}: plain version wrote a tail (evidence/sentinel) row")
         if count:
             want = chains * n_free  # one sweep: every free site of every chain
             for name, cn in (("kernel", ck), ("plain", cp)):
-                got = int((cn.sum(dim=(1, 2, 4)) * free_rows).sum().item())
-                check(got == want, f"{label}: {name} count total {got} != {want}")
-            agree = (sk[:, :nslot] == sp[:, :nslot]).all(dim=0)  # [NSLOT, C]
-            check(torch.equal(ck[:, :, :, agree], cp[:, :, :, agree]),
-                  f"{label}: counts differ where states agree")
-        print(f"{label}: kernel vs plain (count={count}): {frac:.3e} of free sites "
-              f"differ (bound {MAX_MISMATCH}), tail rows intact", flush=True)
-    return max_err
+                per_row = cn.sum(dim=(1, 2, 4))  # [N, NSLOT]
+                got = int((per_row * free).sum().item())
+                check(got == want, f"{label}, {form}: {name} count total {got} != {want}")
+                check(int((per_row * ~free).sum().item()) == 0,
+                      f"{label}, {form}: {name} counted a row that is not free")
+            agree = (sk[:, :nslot] == sp[:, :nslot]).all(dim=0)[None] & free[:, :, None]
+            differ = (ck != cp).any(dim=1).any(dim=1)  # [N, NSLOT, C]
+            check(not bool((differ & agree).any().item()),
+                  f"{label}, {form}: counts differ on free rows where states agree")
+        print(f"{label}: kernel ({form}) vs plain: {frac:.3e} of free sites differ "
+              f"(bound {MAX_MISMATCH}), tail rows intact", flush=True)
+    return errs
+
+
+def window_bound(kst, chains, sweeps, count, clock_hz):
+    """(bound_ms, bound_by) of one window on ``kst``: the larger of the
+    bytes it must move over the card's memory rate (state rows read once,
+    site rows written once, live counts written once, lists and tables
+    read once) and the thread instructions of its live work over the
+    card's issue rate."""
+    from grample_tpu_torch.ops.layout import H_WORDS, compact_counts
+
+    live = compact_counts(kst["c_lists"].cpu().numpy()).astype(np.int64)
+    sites, rows, incs, scope, tfloats = live.sum(axis=0)
+    k = kst["k_kmask"].shape[3]
+    words = int(kst["c_lists"][:, H_WORDS].sum().item())
+    nbytes = 4 * (chains * (rows + sites + (2 * k * sites if count else 0))
+                  + words + tfloats)
+    instr = sweeps * chains * (sites * INSTR_PER_SITE + incs * INSTR_PER_INC
+                               + scope * INSTR_PER_SCOPE)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, instr / (LANES * clock_hz) * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def describe_launch(torch, kst, chains, sweeps, count, label, counts_form=None, sites=None):
+    """Print the live work of ``kst`` per variant and the launch shape the
+    wrapper gives ``chains`` chains of it; returns the plan."""
+    from grample_tpu_torch.ops import gibbs_cuda
+    from grample_tpu_torch.ops.layout import compact_counts
+
+    live = compact_counts(kst["c_lists"].cpu().numpy())
+    n, nc, g, k = kst["k_kmask"].shape
+    f, s = kst["k_scope"].shape[3:]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = gibbs_cuda.plan_launch(kst, chains, count, sweeps, sweeps // 2, sms, counts_form,
+                                  sites)
+    occ = gibbs_cuda.occupancy(k, plan)
+    per = lambda col: f"{live[:, col].min()}-{live[:, col].max()}"  # noqa: E731
+    print(f"launch, {label}: per variant live rows {per(0)} of {nc * g} slots, state rows "
+          f"kept {per(1)} of {kst['pal_oon'].shape[1]}, live incidences {per(2)} of "
+          f"{nc * g * f}, live scope entries {per(3)} of {nc * g * f * s}, compact tables "
+          f"{live[:, 4].min() * 4}-{live[:, 4].max() * 4} bytes (dense "
+          f"{kst['k_tables'][0].numel() * 4}); "
+          f"{'site-parallel' if plan.sites else 'thread per chain'}, {plan.threads} threads "
+          f"per block, {n * -(-chains // (plan.threads // 32 if plan.sites else plan.threads))} "
+          f"blocks, {occ['blocks_per_sm']} resident per SM, "
+          f"{occ['registers']} registers, {occ['local_bytes']} bytes of local memory "
+          f"(spills); shared memory per block {plan.smem} bytes: lists "
+          f"{plan.list_bytes} ({'staged' if plan.stage_lists else 'in device memory'}), "
+          f"tables {plan.table_bytes} ({'staged' if plan.stage_tables else 'in device memory'}), "
+          f"state {plan.state_bytes}, counters {plan.counter_bytes}; counts form "
+          f"{plan.counts_form}", flush=True)
+    return plan
 
 
 def write_net(td, name, model, evidence, truth=None):
@@ -317,6 +431,15 @@ def main() -> int:
     from tests import torch_models
 
     dev = torch.device("cuda:0")
+    path_launches = {}  # phase -> launches by counts form on that path
+
+    def reset_counts():
+        gibbs_cuda.gibbs_window.launches = 0
+        gibbs_cuda.gibbs_window.launches_by_form = {}
+
+    def read_counts(phase):
+        path_launches[phase] = dict(gibbs_cuda.gibbs_window.launches_by_form)
+        return gibbs_cuda.gibbs_window.launches
 
     # ---- 1. the card -----------------------------------------------------
     card = card_line()
@@ -327,21 +450,27 @@ def main() -> int:
     gibbs_cuda._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(_build.library_path())}", flush=True)
+    with open(_build.library_path() + ".log") as fh:
+        ptxas = [ln.strip() for ln in fh if "Compiling" in ln or "registers" in ln
+                 or "spill" in ln]
+    for entry, spills, regs in zip(ptxas[0::3], ptxas[1::3], ptxas[2::3]):
+        name, kmax, form = re.search(r"(gibbs_window(?:_sites)?_kernel)IL\w(\d+)EL\w(\d+)E", entry).groups()
+        print(f"ptxas, {name}<{kmax}, {form}> (card bound, counts form): "
+              f"{regs.split(': ')[1]}; {spills}", flush=True)
+    clock_hz = max_sm_clock_hz()
 
     # ---- 3. kernel against the plain version --------------------------------
     models, caps = grid_variants()
     kst, state0, free_rows, n_free = window_inputs(torch, dev, models, caps, GRID_CHAINS)
-    args = [kst[k] for k in KERNEL_KEYS]
     cb = hash_block(GRID_CHAINS)
-    max_err = compare_window(torch, gibbs_cuda.gibbs_window, window_plain, args, state0,
-                             free_rows, n_free, caps.num_slots, GRID_CHAINS, cb,
-                             "10x10 grid")
+    grid_errs = compare_window(torch, kst, state0, free_rows, n_free, caps.num_slots,
+                               GRID_CHAINS, cb, "10x10 grid")
+    check("shared counters" in grid_errs, "the grid launch has no shared-counter form")
 
     # ---- 3b. the wide-table form against the plain version -------------------
     t0 = time.perf_counter()
     wvariants, wcaps, promedus = promedus_variants(True)
     wkst, wstate0, wfree, wn_free = window_inputs(torch, dev, wvariants, wcaps, WIDE_CHAINS)
-    wargs = [wkst[k] for k in KERNEL_KEYS]
     check(32 < wcaps.oa_cap <= 256, f"collapse variants' oa_cap {wcaps.oa_cap} not in (32, 256]")
     collapsed = [int(np.nonzero(v.collapsed)[0][0]) for v in wvariants]
     print(f"Promedus-shaped net: {promedus.num_vars} vars, "
@@ -349,9 +478,9 @@ def main() -> int:
           f"{collapsed}: oa_cap {wcaps.oa_cap}, scope_cap {wcaps.scope_cap}, "
           f"adj_cap {wcaps.adj_cap}, NVp {wcaps.num_rows} (host set-up "
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    wide_err = compare_window(torch, gibbs_cuda.gibbs_window, window_plain, wargs, wstate0,
-                              wfree, wn_free, wcaps.num_slots, WIDE_CHAINS,
-                              hash_block(WIDE_CHAINS), f"{WIDE_SLOTS} collapse variants")
+    wide_err = max(compare_window(
+        torch, wkst, wstate0, wfree, wn_free, wcaps.num_slots, WIDE_CHAINS,
+        hash_block(WIDE_CHAINS), f"{WIDE_SLOTS} collapse variants").values())
 
     # ---- 3c. the kernel on collapse-headroom encodings -----------------------
     hvariants, hcaps, hpicks = headroom_grid_variants()
@@ -360,25 +489,23 @@ def main() -> int:
     print(f"10x10 grid at headroom caps: collapse variants of vars {hpicks}: "
           f"color_cap {hcaps.color_cap}, adj_cap {hcaps.adj_cap}, oa_cap {hcaps.oa_cap}, "
           f"tail_cap {hcaps.tail_cap}, NVp {hcaps.num_rows}", flush=True)
-    max_err = max(max_err, compare_window(
-        torch, gibbs_cuda.gibbs_window, window_plain, [hkst[k] for k in KERNEL_KEYS],
-        hstate0, hfree, hn_free, hcaps.num_slots, HEADROOM_CHAINS,
-        hash_block(HEADROOM_CHAINS), "10x10 grid, headroom caps, 2 plain + 2 collapse"))
+    head_err = max(compare_window(
+        torch, hkst, hstate0, hfree, hn_free, hcaps.num_slots, HEADROOM_CHAINS,
+        hash_block(HEADROOM_CHAINS),
+        "10x10 grid, headroom caps, 2 plain + 2 collapse").values())
     t0 = time.perf_counter()
     avariants, acaps, apicks = aux_variants()
     check((acaps.oa_cap, acaps.num_rows) == (256, 4200),
           f"aux caps oa_cap {acaps.oa_cap}, NVp {acaps.num_rows} != (256, 4200)")
     akst, astate0, afree, an_free = window_inputs(torch, dev, avariants, acaps, AUX_CHAINS)
-    athreads, ablocks = gibbs_cuda.occupancy(acaps.max_card, True, acaps.num_rows)
     print(f"Promedus-shaped net at aux caps: collapse variants of vars {apicks}: "
           f"color_cap {acaps.color_cap}, oa_cap {acaps.oa_cap}, NVp {acaps.num_rows}, "
-          f"{athreads} threads per block, {ablocks} block(s) per SM, k_tables "
-          f"{akst['k_tables'][0].numel() * 4 / 1e6:.1f} MB per variant (host set-up "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    wide_err = max(wide_err, compare_window(
-        torch, gibbs_cuda.gibbs_window, window_plain, [akst[k] for k in KERNEL_KEYS],
-        astate0, afree, an_free, acaps.num_slots, AUX_CHAINS, hash_block(AUX_CHAINS),
-        f"{WIDE_SLOTS} aux collapse variants x {AUX_CHAINS} chains"))
+          f"k_tables {akst['k_tables'][0].numel() * 4 / 1e6:.1f} MB per variant (host "
+          f"set-up {time.perf_counter() - t0:.1f} s)", flush=True)
+    aux_err = max(compare_window(
+        torch, akst, astate0, afree, an_free, acaps.num_slots, AUX_CHAINS,
+        hash_block(AUX_CHAINS),
+        f"{WIDE_SLOTS} aux collapse variants x {AUX_CHAINS} chains").values())
 
     # ---- 4. the main path through the CLI ------------------------------------
     model = grid_model(4, 7)
@@ -391,7 +518,7 @@ def main() -> int:
         model = model_ev
         mar_out = os.path.join(td, "out.MAR")
         v = model.num_vars
-        gibbs_cuda.gibbs_window.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         rc = cli.main([
             "sample", "-m", path, "-d", "-o", "-s", "simple",
@@ -401,7 +528,7 @@ def main() -> int:
         ])
         torch.cuda.synchronize()
         cli_secs = time.perf_counter() - t0
-        launches = gibbs_cuda.gibbs_window.launches
+        launches = read_counts("4")
         check(rc == 0, f"cli returned {rc}")
         check(launches > 0, "the CLI run did not launch the sweep kernel")
         check(os.path.exists(mar_out), "--mar-out wrote no file")
@@ -429,7 +556,7 @@ def main() -> int:
         mar_out = os.path.join(td, "out.MAR")
         v = model.num_vars
         out = io.StringIO()
-        gibbs_cuda.gibbs_window.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main([
@@ -439,7 +566,7 @@ def main() -> int:
             ])
         torch.cuda.synchronize()
         col_secs = time.perf_counter() - t0
-        col_launches = gibbs_cuda.gibbs_window.launches
+        col_launches = read_counts("4b")
         log = out.getvalue()
         check(rc == 0, f"collapsed cli returned {rc}")
         check(col_launches > 0, "the collapsed CLI run did not launch the sweep kernel")
@@ -475,12 +602,12 @@ def main() -> int:
                     "--vchains", str(GRID_CHAINS), "-a", "2", "-b", str(200 * v),
                     "-w", str(100 * v), "-x", str(ADAPT_SECS), "-e", str(SEED),
                     "--split-group", split, "--mar-out", mar_out, "-t", trace]
-            gibbs_cuda.gibbs_window.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             rc, log = run_cli(cli, argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            launches_a = gibbs_cuda.gibbs_window.launches
+            launches_a = read_counts(phase)
             res = summary(trace)
             steps = adapt_secs(log)
             check(rc == 0, f"{phase}: cli returned {rc}")
@@ -539,9 +666,9 @@ def main() -> int:
         check(rc == 0 and os.path.exists(ck + ".aux"), "4e: the first run wrote no split snapshot")
         g1, meta1 = load_checkpoint(ck, model_ev, device=dev)
         snaps1 = dict(g1.aux._rbp_snaps)
-        gibbs_cuda.gibbs_window.launches = 0
+        reset_counts()
         rc, log2 = run_cli(cli, base + ["-x", str(2 * (ADAPT_SECS // 3)), "--resume"])
-        launches_r = gibbs_cuda.gibbs_window.launches
+        launches_r = read_counts("4e")
         g2, meta2 = load_checkpoint(ck, model_ev, device=dev)
         check(rc == 0 and "RESUMED" in log2, "4e: the run did not resume")
         check(launches_r > 0, "4e: the resumed run did not launch the kernel")
@@ -556,17 +683,27 @@ def main() -> int:
         del g1, g2
 
     # ---- 5. timing ---------------------------------------------------------
-    def timed(fn, a, st0, sweeps, count=True, cb=cb) -> float:
+    def timed(fn, st0, sweeps, count=True, cb=cb) -> float:
         st = st0.clone()
         torch.cuda.synchronize()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn(*a, st, SEED, sweeps, sweeps // 2, count, cb)
+        fn(st, SEED, sweeps, sweeps // 2, count, cb)
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1)
 
-    def rate_line(label, sites, kernel_ms, plain_ms=None):
+    def kern(kst_, counts_form=None, sites=None):
+        return lambda *a: gibbs_cuda.gibbs_window(kst_, *a, counts_form, sites)
+
+    def plain(kst_):
+        return lambda *a: window_plain(*[kst_[k] for k in KERNEL_KEYS], *a)
+
+    def best(fn, st0, sweeps, count=True, cb=cb) -> float:
+        fn(st0.clone(), SEED, 1, 0, count, cb)  # warm
+        return min(timed(fn, st0, sweeps, count, cb), timed(fn, st0, sweeps, count, cb))
+
+    def rate_line(label, sites, kernel_ms, plain_ms=None, bound=None):
         text = (f"timing ({card}): {label}: kernel {kernel_ms:.3f} ms = "
                 f"{sites / (kernel_ms / 1e3):.4e} site-samples/s")
         if plain_ms is not None:
@@ -574,66 +711,111 @@ def main() -> int:
                      f"site-samples/s, kernel/plain speed {plain_ms / kernel_ms:.2f}x")
             if kernel_ms >= plain_ms:
                 text += " (the kernel is SLOWER)"
+        if bound is not None:
+            text += (f"; bound {bound[0]:.3f} ms by {bound[1]} "
+                     f"({bound[0] / kernel_ms:.3f} of the kernel's time)")
         print(text, flush=True)
 
+    source = "grample_tpu_torch/csrc/gibbs_window.cu"
+    kernels = []
+
+    def record(name, replaces, launched, err, ms, plain_ms_, bound):
+        """``launched(path_launches)`` gives the entry's launches once
+        every main path has run."""
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms_,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
+
+    def of_form(form):
+        return lambda paths: sum(by_form.get(form, 0) for by_form in paths.values())
+
+    def of_phases(*phases):
+        return lambda paths: sum(sum(paths[ph].values()) for ph in phases)
+
+    # the 10x10 grid: every kernel form against one plain run each
     sites = TIMED_SWEEPS * GRID_CHAINS * n_free
-    gibbs_cuda.gibbs_window(*args, state0.clone(), SEED, 1, 0, True, cb)  # warm
-    kernel_ms = min(timed(gibbs_cuda.gibbs_window, args, state0, TIMED_SWEEPS),
-                    timed(gibbs_cuda.gibbs_window, args, state0, TIMED_SWEEPS))
-    plain_ms = timed(window_plain, args, state0, TIMED_SWEEPS)
-    uncounted_ms = min(timed(gibbs_cuda.gibbs_window, args, state0, TIMED_SWEEPS, False),
-                       timed(gibbs_cuda.gibbs_window, args, state0, TIMED_SWEEPS, False))
-    rate_line(f"10x10 grid, 262144 chains, {TIMED_SWEEPS}-sweep counted window", sites,
-              kernel_ms, plain_ms)
-    print(f"timing: the same window uncounted: kernel {uncounted_ms:.3f} ms "
-          f"({uncounted_ms / kernel_ms:.3f} of the counted window)", flush=True)
+    grid_label = f"10x10 grid, 262144 chains, {TIMED_SWEEPS}-sweep window"
+    plain_ms = timed(plain(kst), state0, TIMED_SWEEPS)
+    plain_unc_ms = timed(plain(kst), state0, TIMED_SWEEPS, False)
+    grid_ms = {}
+    for form, count, counts_form, by_site in kernel_forms(torch, kst, GRID_CHAINS,
+                                                          TIMED_SWEEPS):
+        plan = describe_launch(torch, kst, GRID_CHAINS, TIMED_SWEEPS, count,
+                               f"{grid_label}, {form}", counts_form, by_site)
+        grid_ms[form] = best(kern(kst, counts_form, by_site), state0, TIMED_SWEEPS, count)
+        bound = window_bound(kst, GRID_CHAINS, TIMED_SWEEPS, count, clock_hz)
+        rate_line(f"{grid_label}, {form}", sites, grid_ms[form],
+                  plain_ms if count else plain_unc_ms, bound)
+        if not form.startswith("rule"):
+            record(f"gibbs_window ({form})", "grample_tpu/ops/gibbs_pallas.py:297",
+                   of_form(gibbs_cuda.form_name(plan)), grid_errs[form], grid_ms[form],
+                   plain_ms if count else plain_unc_ms, bound)
+    kernel_ms = grid_ms["rule"]
+    print(f"timing: the same window uncounted: {grid_ms['rule, uncounted'] / kernel_ms:.3f} of the "
+          f"counted window; shared counters / reductions "
+          f"{grid_ms['shared counters'] / grid_ms['reductions']:.3f}", flush=True)
 
     # the collapse-headroom encodings of phase 3c, kernel and plain
-    for label, kst_h, st_h, nf, chains, sweeps in (
+    for label, kst_h, st_h, nf, chains, sweeps, err, replaces in (
             ("10x10 grid at headroom caps, 2 plain + 2 collapse variants x "
-             f"{HEADROOM_CHAINS} chains", hkst, hstate0, hn_free, HEADROOM_CHAINS, TIMED_SWEEPS),
+             f"{HEADROOM_CHAINS} chains", hkst, hstate0, hn_free, HEADROOM_CHAINS, TIMED_SWEEPS,
+             head_err, "grample_tpu/ops/gibbs_pallas.py:297"),
             (f"{WIDE_SLOTS} Promedus-shaped collapse variants at aux caps x {AUX_CHAINS} "
-             "chains", akst, astate0, an_free, AUX_CHAINS, WIDE_PAIR_SWEEPS)):
-        a_h = [kst_h[k] for k in KERNEL_KEYS]
+             "chains", akst, astate0, an_free, AUX_CHAINS, WIDE_PAIR_SWEEPS, aux_err,
+             "grample_tpu/ops/gibbs_pallas.py:355-367")):
         cb_h = hash_block(chains)
-        gibbs_cuda.gibbs_window(*a_h, st_h.clone(), SEED, 1, 0, True, cb_h)  # warm
-        k_ms = min(timed(gibbs_cuda.gibbs_window, a_h, st_h, sweeps, cb=cb_h),
-                   timed(gibbs_cuda.gibbs_window, a_h, st_h, sweeps, cb=cb_h))
-        p_ms = timed(window_plain, a_h, st_h, sweeps, cb=cb_h)
-        rate_line(f"{label}, {sweeps}-sweep counted window", sweeps * chains * nf, k_ms, p_ms)
+        label = f"{label}, {sweeps}-sweep counted window"
+        describe_launch(torch, kst_h, chains, sweeps, True, label)
+        k_ms = best(kern(kst_h), st_h, sweeps, cb=cb_h)
+        p_ms = timed(plain(kst_h), st_h, sweeps, cb=cb_h)
+        bound = window_bound(kst_h, chains, sweeps, True, clock_hz)
+        rate_line(label, sweeps * chains * nf, k_ms, p_ms, bound)
+        for name, by_site in (("thread per chain", False), ("site-parallel", True)):
+            describe_launch(torch, kst_h, chains, sweeps, True, f"{label}, {name}",
+                            sites=by_site)
+            rate_line(f"{label}, {name}", sweeps * chains * nf,
+                      best(kern(kst_h, None, by_site), st_h, sweeps, cb=cb_h))
+        record(f"gibbs_window ({label.split(',')[0]})", replaces,
+               of_phases("4c") if kst_h is hkst else of_phases("4d", "4e", "5b adaptive"),
+               err, k_ms, p_ms, bound)
     del hkst, hstate0, akst, astate0
 
-    threads, blocks = gibbs_cuda.occupancy(wcaps.max_card, True, wcaps.num_rows)
-    table_mb = wkst["k_tables"][0].numel() * 4 / 1e6
-    print(f"collapse variants: {threads} threads per block, {blocks} block(s) per SM "
-          f"({wcaps.num_rows * threads} bytes of state per block), k_tables "
-          f"{table_mb:.1f} MB per variant, {WIDE_SLOTS * table_mb:.1f} MB in all", flush=True)
     wsites = WIDE_CHAINS * wn_free
-    wide_full_ms = timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_FULL_SWEEPS)
-    rate_line(f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, {WIDE_FULL_SWEEPS}-sweep "
-              "counted window", WIDE_FULL_SWEEPS * wsites, wide_full_ms)
-    wide_ms = min(timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_PAIR_SWEEPS),
-                  timed(gibbs_cuda.gibbs_window, wargs, wstate0, WIDE_PAIR_SWEEPS))
-    wide_plain_ms = timed(window_plain, wargs, wstate0, WIDE_PAIR_SWEEPS)
+    wlabel = f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains"
+    describe_launch(torch, wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, wlabel)
+    wide_full_ms = best(kern(wkst), wstate0, WIDE_FULL_SWEEPS)
+    rate_line(f"{wlabel}, {WIDE_FULL_SWEEPS}-sweep counted window", WIDE_FULL_SWEEPS * wsites,
+              wide_full_ms, None, window_bound(wkst, WIDE_CHAINS, WIDE_FULL_SWEEPS, True, clock_hz))
+    wide_ms = best(kern(wkst), wstate0, WIDE_PAIR_SWEEPS)
+    wide_plain_ms = timed(plain(wkst), wstate0, WIDE_PAIR_SWEEPS)
+    wbound = window_bound(wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
     rate_line(f"the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window",
-              WIDE_PAIR_SWEEPS * wsites, wide_ms, wide_plain_ms)
-    del wkst, wargs, wstate0
+              WIDE_PAIR_SWEEPS * wsites, wide_ms, wide_plain_ms, wbound)
+    del wkst, wstate0
 
     pvariants, pcaps, _ = promedus_variants(False)
     pkst, pstate0, _, pn_free = window_inputs(torch, dev, pvariants, pcaps, WIDE_CHAINS)
-    pargs = [pkst[k] for k in KERNEL_KEYS]
-    pthreads, pblocks = gibbs_cuda.occupancy(pcaps.max_card, True, pcaps.num_rows)
-    plain_copy_ms = min(timed(gibbs_cuda.gibbs_window, pargs, pstate0, TIMED_SWEEPS),
-                        timed(gibbs_cuda.gibbs_window, pargs, pstate0, TIMED_SWEEPS))
-    rate_line(f"{WIDE_SLOTS} plain copies (oa_cap {pcaps.oa_cap}, NVp {pcaps.num_rows}, "
-              f"{pthreads} threads, {pblocks} block(s) per SM) x {WIDE_CHAINS} chains, "
-              f"{TIMED_SWEEPS}-sweep counted window", TIMED_SWEEPS * WIDE_CHAINS * pn_free,
-              plain_copy_ms)
+    plabel = (f"{WIDE_SLOTS} plain copies (oa_cap {pcaps.oa_cap}, NVp {pcaps.num_rows}) x "
+              f"{WIDE_CHAINS} chains, {TIMED_SWEEPS}-sweep counted window")
+    describe_launch(torch, pkst, WIDE_CHAINS, TIMED_SWEEPS, True, plabel)
+    plain_copy_ms = best(kern(pkst), pstate0, TIMED_SWEEPS)
+    rate_line(plabel, TIMED_SWEEPS * WIDE_CHAINS * pn_free, plain_copy_ms, None,
+              window_bound(pkst, WIDE_CHAINS, TIMED_SWEEPS, True, clock_hz))
+    # the shape of the 5b runs' main group (2 x 8192 chains), in both forms:
+    # where the form rule's threshold lies
+    small = {key: v[:2] for key, v in pkst.items()}
+    for name, by_site in (("thread per chain", False), ("site-parallel", True)):
+        label = f"2 plain copies x 8192 chains, {TIMED_SWEEPS}-sweep counted window, {name}"
+        describe_launch(torch, small, 8192, TIMED_SWEEPS, True, label, sites=by_site)
+        rate_line(label, TIMED_SWEEPS * 8192 * pn_free // 4,
+                  best(kern(small, None, by_site), pstate0[:2, :, :8192].contiguous(),
+                       TIMED_SWEEPS, cb=hash_block(8192)))
     per_site = ((wide_full_ms / (WIDE_FULL_SWEEPS * wsites))
                 / (plain_copy_ms / (TIMED_SWEEPS * WIDE_CHAINS * pn_free)))
     print(f"timing: collapse variants / plain copies, time per counted site: {per_site:.3f}",
           flush=True)
-    del pkst, pargs, pstate0
+    del pkst, pstate0
 
     with tempfile.TemporaryDirectory() as td:
         m_plain, p_evidence = torch_models.promedus_like(discrete, seed=1)
@@ -645,17 +827,20 @@ def main() -> int:
             converge_window=100 * v, max_secs=10.0, seed=SEED)
         lines = []
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         t0 = time.perf_counter()
         res = Engine(cfg, log=lines.append).run()
         torch.cuda.synchronize()
         eng_secs = time.perf_counter() - t0
+        eng_launches = read_counts("5 collapsed")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(res.samples > 0 and np.isfinite(res.marginals).all(), "engine run produced nothing")
+    check(res.samples > 0 and np.isfinite(res.marginals).all() and eng_launches > 0,
+          "engine run produced nothing")
     print(f"timing ({card}): engine -s collapsed -c {WIDE_SLOTS} --vchains {WIDE_CHAINS} on "
           f"the Promedus-shaped net: {res.samples_per_sec:.4e} counted site-samples/s over "
           f"{res.runtime:.2f} s of sampling clock ({eng_secs:.2f} s wall, {res.sweeps} "
-          f"sweeps), collapsed vars {res.collapsed}, peak device memory {peak_gb:.2f} GB",
-          flush=True)
+          f"sweeps), collapsed vars {res.collapsed}, peak device memory {peak_gb:.2f} GB, "
+          f"{eng_launches} kernel launches", flush=True)
 
     # ---- 5b. the adaptive engine on the Promedus-shaped net -----------------
     with tempfile.TemporaryDirectory() as td:
@@ -669,14 +854,14 @@ def main() -> int:
                 chains=2, chains_per_variant=8192, chain_adds=4 if sampler == "adaptive" else 1,
                 burnin=50 * v, converge_window=100 * v, max_secs=float(ADAPT_SECS), seed=SEED)
             lines = []
-            gibbs_cuda.gibbs_window.launches = 0
+            reset_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = Engine(cfg, log=lines.append).run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             runs[sampler] = (res, wall, torch.cuda.max_memory_allocated() / 1e9,
-                             gibbs_cuda.gibbs_window.launches, "\n".join(lines))
+                             read_counts(f"5b {sampler}"), "\n".join(lines))
     res, wall, peak_gb, launches_5b, log = runs["adaptive"]
     steps = adapt_secs(log)
     aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
@@ -703,26 +888,13 @@ def main() -> int:
           flush=True)
 
     # ---- 6. results --------------------------------------------------------
-    source = "grample_tpu_torch/csrc/gibbs_window.cu"
-    kernels = [{
-        "name": "gibbs_window",
-        "route": "cuda",
-        "source": source,
-        "replaces": "grample_tpu/ops/gibbs_pallas.py:297",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "gibbs_window (wide-OA form)",
-        "route": "cuda",
-        "source": source,
-        "replaces": "grample_tpu/ops/gibbs_pallas.py:355-367",
-        "launches": col_launches,
-        "max_abs_err": wide_err,
-        "ms": wide_ms,
-        "plain_ms": wide_plain_ms,
-    }]
+    record("gibbs_window (wide tables)", "grample_tpu/ops/gibbs_pallas.py:355-367",
+           of_phases("4b", "5 collapsed"), wide_err, wide_ms, wide_plain_ms, wbound)
+    for name, by_form in path_launches.items():
+        print(f"launches on path {name}: {by_form}", flush=True)
+    for entry in kernels:
+        entry["launches"] = entry["launches"](path_launches)
+        check(entry["launches"] > 0, f"{entry['name']}: no launch on the main paths")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,50 +1,65 @@
 // Whole-window chromatic Gibbs sweep for Hopper (sm_90a).
 //
 // Replaces grample_tpu/ops/gibbs_pallas.py::_make_kernel (launched by
-// _pallas_window), the reference's only TPU kernel, in both of its forms:
-// the plain form (local tables of at most 32 rows, an unrolled select
-// chain) and the wide-OA form (33 to 256 rows, a counted-loop lookup,
-// gibbs_pallas.py:355-367).  Here one code path serves every width: the
-// table row is indexed directly, t = tb + (fi * oa + base) * k, so `oa` is
-// a run-time argument and only the bytes read per incidence grow with it.
-// It computes the same window: for each sweep and color, every site's
-// local-table log-conditional summed over its incidences, masked to the
-// card, max-shifted exp, the 1e-6 * total floor, and one counter-hashed
-// uniform drawn by inverse CDF; if counting, one count per site into half
-// (sweep >= half_point).  The plain PyTorch version of the same function
-// is grample_tpu_torch/ops/gibbs_torch.py::window_plain.
+// _pallas_window), the reference's only TPU kernel, in both of its forms
+// (local tables of at most 32 rows, and the wide-OA form of 33 to 256
+// rows, gibbs_pallas.py:355-367).  It computes the same window: for each
+// sweep and color, every site's local-table log-conditional summed over
+// its incidences, masked to the card, max-shifted exp, the 1e-6 * total
+// floor, and one counter-hashed uniform drawn by inverse CDF; if counting,
+// one count per site into half (sweep >= half_point).  The plain PyTorch
+// version of the same function is
+// grample_tpu_torch/ops/gibbs_torch.py::window_plain.
 //
-// Design: one thread per (variant, chain).  Variables of one color are
-// conditionally independent given the rest, so a thread that updates its
-// chain's color rows one after another makes the same chromatic update;
-// threads never synchronise.  A block's chain states live in shared
-// memory as uint8 [NVp][blockDim.x] for the whole window, so device
-// memory sees the state once in and once out.  Neighbour states are read
-// from shared memory, tables straight from device memory (every thread of
-// a warp reads the same scope/stride words, a broadcast; table rows are
-// small and stay in L1), and counts are int32 read-modify-writes into
-// [N, 2, K, NSLOT, C]: each thread owns its chain's column, so no atomics
-// are needed and neighbouring lanes hit neighbouring words.
+// What bounds it on this card: instructions issued per site, and the
+// number of warps an SM can keep resident to hide the latency of the
+// dependent shared-memory loads between them (list word -> state word ->
+// table row).  Bytes are not the limit: a window reads its state once and
+// writes it once.  The reference's layout is dense rectangles padded to
+// the caps of the whole group (every slot row, every incidence slot,
+// every scope slot), which a vector unit sweeps for free and a GPU thread
+// pays for slot by slot: on a Promedus-shaped collapse encoding fewer
+// than 1 row in 4 is a site and 1 scope slot in 80 has a stride.  So:
 //
-// What bounds it on the card: the count read-modify-write (about 8 bytes
-// of device traffic per counted site), the shared-memory gathers of the
-// neighbour states, and one expf per (site, outcome).  Making it fast
-// (counts held in registers or shared memory, tables staged in shared
-// memory, several chains per thread) is later work.
+//  - The kernel walks the compact work lists of ops/layout.py: live
+//    sites only, each site's live incidences only, each incidence's live
+//    scope entries only, and tables cut to the rows a stride can reach.
+//    Skipping a dead incidence is exact (its table row is all 0.0f and
+//    x + 0.0f == x); dead rows are neither drawn nor counted nor written
+//    (their counts stay 0, their state stays as given: 0 in every caller).
+//  - A block copies its variant's lists, and the tables when they fit,
+//    into shared memory once per window with 16-byte cp.async copies, and
+//    every thread reuses them for all sweeps.  What does not fit stays in
+//    device memory and is read through L1 (every thread of a warp reads
+//    the same list word, a broadcast); the compact tables of a variant
+//    are tens of KB, so they stay in L2 however many variants run.
+//  - One thread per (variant, chain), as colors make sites of one color
+//    independent: threads never synchronise after staging.  A thread's
+//    chain state is held in shared memory over the rows the lists touch
+//    only (live sites, then the evidence rows some scope entry reads),
+//    packed to 1, 2 or 4 bits a row by the card bound, word w of thread t
+//    at sm[w * T + t] (conflict-free).  A 916-var binary net needs 116
+//    bytes a thread where the padded byte rows needed 3128 to 4200, which
+//    is what lets 256-thread blocks and several blocks per SM be resident.
+//  - Counts: the per-site count is either a reduction without a return
+//    value into counts[N, 2, K, NSLOT, C] (atomicAdd whose result is
+//    unused compiles to RED, so the warp does not wait for device memory),
+//    or a 16-bit counter in shared memory per (site, outcome > 0) that is
+//    flushed with plain stores at the half point and at the end.  Which of
+//    the two a launch takes is the wrapper's rule (ops/gibbs_cuda.py).
 //
-// Wide tables (collapse variants) change the limits, not the code: their
-// stacks have more state rows (NVp near 3100 on a 916-var Promedus-shaped
-// net against about 1500 for its plain caps), so the uint8 state of a
-// 64-thread block fills most of the SM's shared memory and one block runs
-// per SM; their scopes reach 9-11 vars, so each incidence costs that many
-// shared-memory reads; and a row of a 256-row local table is a scattered
-// 8-byte read from tables that no longer fit L2 (44 MB per variant).
-// gibbs_window_occupancy reports the blocks per SM that a launch gets.
+//  - A launch too small to fill the card with a thread per chain (the
+//    split group's aux launches: a few variants x 256 chains) takes the
+//    site-parallel form instead, gibbs_window_sites_kernel below: a warp
+//    per chain, its lanes on the live sites of one color.
 //
-// Float arithmetic uses the _rn intrinsics so that the compiler does not
-// contract a*b+c into an FMA: the draw then rounds as the plain version
-// and the reference kernel do, and a site differs only where expf's last
-// bit moves a uniform across a CDF boundary.
+// The hash is stateless per (site row in its color, chain, sweep, color),
+// so the mapping of threads to sites does not change a draw.  Float
+// arithmetic uses the _rn intrinsics so that the compiler does not
+// contract a*b+c into an FMA, and sums run in the reference's order
+// (incidences in f order, outcomes in k order): the draw rounds as the
+// plain version and the reference kernel do, and a site differs only
+// where expf's last bit moves a uniform across a CDF boundary.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,6 +69,25 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr float kFloor = 1e-6f;
 constexpr float kInv24 = 5.9604644775390625e-8f;  // 2^-24
+
+// c_lists header words (ops/layout.py H_*)
+constexpr int H_SITES = 0, H_ROWS = 1, H_TABLE_FLOATS = 4, H_OFF_COLOR = 5,
+              H_OFF_SITES = 6, H_OFF_INCS = 7, H_OFF_SCOPE = 8, H_WORDS = 9;
+
+constexpr int COUNT_NONE = 0, COUNT_RED = 1, COUNT_SHARED = 2;
+
+struct Params {
+  const int32_t* c_lists;   // [N, lw]
+  const float* c_tables;    // [N, tw]
+  const int32_t* c_rows;    // [N, rw]
+  int32_t* state;           // [N, NVp, C]
+  int32_t* counts;          // [N, 2, K, NC*G, C]
+  int lw, tw, rw, nc, g, k, nvp, c_total;
+  uint32_t seed;
+  int num_sweeps, half_point, cb;
+  int stage_lists, stage_tables;  // copy them into shared memory
+  int state_words;                // packed state words per chain
+};
 
 __device__ __forceinline__ float hash_uniform(uint32_t row, uint32_t lane_mix,
                                               uint32_t counter) {
@@ -70,196 +104,385 @@ __device__ __forceinline__ float hash_uniform(uint32_t row, uint32_t lane_mix,
   return static_cast<float>(static_cast<int32_t>(x >> 8)) * kInv24;
 }
 
-template <int KMAX, bool COUNT>
-__global__ void gibbs_window_kernel(
-    const int32_t* __restrict__ k_scope,    // [N, NC, G, F, S]
-    const int32_t* __restrict__ k_strides,  // [N, NC, G, F, S]
-    const float* __restrict__ k_tables,     // [N, NC, G, F, OA, K]
-    const uint8_t* __restrict__ k_kmask,    // [N, NC, G, K]
-    int32_t* __restrict__ state,            // [N, NVp, C]
-    int32_t* __restrict__ counts,           // [N, 2, K, NC*G, C]
-    int nc, int g, int f, int s, int oa, int k, int nvp, int c_total,
-    uint32_t seed, int num_sweeps, int half_point, int cb) {
-  extern __shared__ uint8_t sm[];  // [NVp][blockDim.x]
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+// Copy `n` 4-byte words (a multiple of 4) with every thread of the block.
+__device__ __forceinline__ void stage(void* dst, const void* src, int n) {
+  auto* d = static_cast<uint8_t*>(dst);
+  const auto* s = static_cast<const uint8_t*>(src);
+  for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
+    cp_async16(d + static_cast<size_t>(i) * 4, s + static_cast<size_t>(i) * 4);
+}
+
+// The inverse-CDF draw of one site from its summed logits lg[0..k), its
+// in-card bits km and its hash row; the reference's arithmetic, op for op.
+template <int KMAX>
+__device__ __forceinline__ int draw_site(float (&lg)[KMAX], uint32_t km, int k,
+                                         uint32_t row, uint32_t lane_mix,
+                                         uint32_t counter) {
+  float mx = kNeg;
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < k) {
+      lg[kk] = (km >> kk) & 1u ? lg[kk] : kNeg;
+      mx = kk == 0 ? lg[kk] : fmaxf(mx, lg[kk]);
+    }
+  }
+  float tot = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < k) {
+      lg[kk] = expf(__fsub_rn(lg[kk], mx));
+      tot = kk == 0 ? lg[kk] : __fadd_rn(tot, lg[kk]);
+    }
+  }
+  const float floor_add = __fmul_rn(tot, kFloor);
+  float tot2 = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk) {
+    if (kk < k) {
+      lg[kk] = __fmul_rn(__fadd_rn(lg[kk], floor_add), (km >> kk) & 1u ? 1.0f : 0.0f);
+      tot2 = kk == 0 ? lg[kk] : __fadd_rn(tot2, lg[kk]);
+    }
+  }
+  const float u = __fmul_rn(hash_uniform(row, lane_mix, counter), tot2);
+  float run = 0.0f;
+  int newv = 0;
+#pragma unroll
+  for (int kk = 0; kk < KMAX - 1; ++kk) {
+    if (kk < k - 1) {
+      run = kk == 0 ? lg[kk] : __fadd_rn(run, lg[kk]);
+      newv += u > run ? 1 : 0;
+    }
+  }
+  return newv;
+}
+
+template <int KMAX, int COUNT>
+__global__ void gibbs_window_kernel(const Params p) {
+  // state rows are packed BITS to a row, 32 / BITS rows to a word
+  constexpr int BITS = KMAX <= 2 ? 1 : KMAX <= 4 ? 2 : 4;
+  constexpr int RSH = BITS == 1 ? 5 : BITS == 2 ? 4 : 3;  // log2(rows per word)
+  constexpr uint32_t RMASK = (1u << RSH) - 1u;
+  constexpr uint32_t VMASK = (1u << BITS) - 1u;
+
+  extern __shared__ __align__(16) uint8_t smem[];
   const int T = blockDim.x;
   const int tid = threadIdx.x;
   const int n = blockIdx.y;
   const int c = blockIdx.x * T + tid;
-  if (c >= c_total) return;  // no barrier anywhere: early exit is safe
+  const int k = p.k;
+  const size_t C = static_cast<size_t>(p.c_total);
 
-  const size_t C = static_cast<size_t>(c_total);
-  const int nslot = nc * g;
-  int32_t* st = state + static_cast<size_t>(n) * nvp * C + c;
-  for (int r = 0; r < nvp; ++r) sm[r * T + tid] = static_cast<uint8_t>(st[r * C]);
+  // header words come from device memory: the staged copy lands later
+  const int32_t* lists = p.c_lists + static_cast<size_t>(n) * p.lw;
+  const float* tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
+  const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
+  const int L = lists[H_SITES];
+  const int R = lists[H_ROWS];
 
-  const uint32_t lane_mix = static_cast<uint32_t>(c % cb) * 0x85EBCA6Bu;
-  const uint32_t cell = seed + 65537u * static_cast<uint32_t>(n) +
-                        257u * static_cast<uint32_t>(c / cb);
-  const size_t fs = static_cast<size_t>(f) * s;
+  uint8_t* sp = smem;
+  if (p.stage_tables) {
+    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
+    tabs = reinterpret_cast<const float*>(sp);
+    sp += static_cast<size_t>(p.tw) * 4;
+  }
+  if (p.stage_lists) {
+    stage(sp, lists, lists[H_WORDS]);
+    lists = reinterpret_cast<const int32_t*>(sp);
+    sp += static_cast<size_t>(p.lw) * 4;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  uint32_t* sm = reinterpret_cast<uint32_t*>(sp);  // [state_words][T]
+  sp += static_cast<size_t>(p.state_words) * T * 4;
+  uint16_t* cnt = reinterpret_cast<uint16_t*>(sp);  // [L * (k - 1)][T], COUNT_SHARED
 
-  for (int si = 0; si < num_sweeps; ++si) {
-    const int hsel = si >= half_point ? 1 : 0;
-    for (int ci = 0; ci < nc; ++ci) {
+  int32_t* st = p.state + static_cast<size_t>(n) * p.nvp * C + c;
+  if (c < p.c_total) {
+    // the copies above are in flight while the state is packed
+    for (int w = 0; (w << RSH) < R; ++w) {
+      uint32_t acc = 0;
+#pragma unroll 4
+      for (int j = 0; j <= static_cast<int>(RMASK); ++j) {
+        const int r = (w << RSH) + j;
+        if (r < R) acc |= (static_cast<uint32_t>(st[rows[r] * C]) & VMASK) << (j * BITS);
+      }
+      sm[w * T + tid] = acc;
+    }
+    if (COUNT == COUNT_SHARED)
+      for (int i = 0; i < L * (k - 1); ++i) cnt[i * T + tid] = 0;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (c >= p.c_total) return;  // no barrier below
+
+  const int32_t* color_end = lists + lists[H_OFF_COLOR];
+  const int2* sites = reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]);
+  const int2* incs = reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]);
+  const uint32_t* scope = reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]);
+
+  const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
+  const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
+                        257u * static_cast<uint32_t>(c / p.cb);
+  const size_t nslot_c = static_cast<size_t>(p.nc) * p.g * C;
+  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot_c + c;
+  int since = 0;  // sweeps counted since the last flush (COUNT_SHARED)
+
+  for (int si = 0; si < p.num_sweeps; ++si) {
+    const int hsel = si >= p.half_point ? 1 : 0;
+    int site = 0, inc = 0, q = 0;
+    for (int ci = 0; ci < p.nc; ++ci) {
       const uint32_t counter =
-          cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(nc) +
+          cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(p.nc) +
                                 static_cast<uint32_t>(ci));
-      for (int gi = 0; gi < g; ++gi) {
-        const size_t row = (static_cast<size_t>(n) * nc + ci) * g + gi;
-        const int32_t* sc = k_scope + row * fs;
-        const int32_t* sd = k_strides + row * fs;
-        const float* tb = k_tables + row * f * oa * k;
+      const int site_end = color_end[ci];
+      for (; site < site_end; ++site) {
+        const int2 sw = sites[site];
+        const uint32_t gi = static_cast<uint32_t>(sw.x) & 0xFFFFu;
+        const uint32_t km = static_cast<uint32_t>(sw.x) >> 16;
         float lg[KMAX];
 #pragma unroll
         for (int kk = 0; kk < KMAX; ++kk) lg[kk] = 0.0f;
-        for (int fi = 0; fi < f; ++fi) {
-          int base = 0;
-          for (int q = 0; q < s; ++q)
-            base += static_cast<int>(sm[sc[fi * s + q] * T + tid]) * sd[fi * s + q];
-          const float* t = tb + (static_cast<size_t>(fi) * oa + base) * k;
+        for (; inc < sw.y; ++inc) {
+          const int2 iw = incs[inc];
+          int trow = iw.x;
+          // most incidences have one or two live entries: no unrolling
+#pragma unroll 1
+          for (; q < iw.y; ++q) {
+            const uint32_t e = scope[q];
+            const uint32_t row = e & 0xFFFFu;
+            const uint32_t v = (sm[(row >> RSH) * T + tid] >> ((row & RMASK) * BITS)) & VMASK;
+            trow += static_cast<int>(v * (e >> 16));
+          }
+          const float* t = tabs + trow * k;  // a variant's tables stay far below 2^31 floats
 #pragma unroll
           for (int kk = 0; kk < KMAX; ++kk)
             if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
         }
-        const uint8_t* mk = k_kmask + row * k;
-        float mx = kNeg;
-#pragma unroll
-        for (int kk = 0; kk < KMAX; ++kk) {
-          if (kk < k) {
-            lg[kk] = mk[kk] ? lg[kk] : kNeg;
-            mx = kk == 0 ? lg[kk] : fmaxf(mx, lg[kk]);
-          }
-        }
-        float tot = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KMAX; ++kk) {
-          if (kk < k) {
-            lg[kk] = expf(__fsub_rn(lg[kk], mx));
-            tot = kk == 0 ? lg[kk] : __fadd_rn(tot, lg[kk]);
-          }
-        }
-        const float floor_add = __fmul_rn(tot, kFloor);
-        float tot2 = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KMAX; ++kk) {
-          if (kk < k) {
-            lg[kk] = __fmul_rn(__fadd_rn(lg[kk], floor_add), mk[kk] ? 1.0f : 0.0f);
-            tot2 = kk == 0 ? lg[kk] : __fadd_rn(tot2, lg[kk]);
-          }
-        }
-        const float u = __fmul_rn(hash_uniform(static_cast<uint32_t>(gi), lane_mix, counter), tot2);
-        float run = 0.0f;
-        int newv = 0;
-#pragma unroll
-        for (int kk = 0; kk < KMAX - 1; ++kk) {
-          if (kk < k - 1) {
-            run = kk == 0 ? lg[kk] : __fadd_rn(run, lg[kk]);
-            newv += u > run ? 1 : 0;
-          }
-        }
-        const int r = ci * g + gi;
-        sm[r * T + tid] = static_cast<uint8_t>(newv);
-        if (COUNT) {
-          counts[((static_cast<size_t>(n) * 2 + hsel) * k + newv) * nslot * C +
-                 static_cast<size_t>(r) * C + c] += 1;
+        const int newv = draw_site<KMAX>(lg, km, k, gi, lane_mix, counter);
+        uint32_t* word = sm + (site >> RSH) * T + tid;
+        const int sh = (site & RMASK) * BITS;
+        *word = (*word & ~(VMASK << sh)) | (static_cast<uint32_t>(newv) << sh);
+        if (COUNT == COUNT_RED) {
+          atomicAdd(cn + (static_cast<size_t>(hsel) * k + newv) * nslot_c +
+                        static_cast<size_t>(ci * p.g + gi) * C, 1);
+        } else if (COUNT == COUNT_SHARED) {
+          if (newv > 0) cnt[(site * (k - 1) + newv - 1) * T + tid] += 1;
         }
       }
     }
+    if (COUNT == COUNT_SHARED) {
+      ++since;
+      if (si + 1 == p.half_point || si + 1 == p.num_sweeps) {
+        for (int s = 0; s < L; ++s) {
+          int32_t* out = cn + static_cast<size_t>(hsel) * k * nslot_c +
+                         static_cast<size_t>(rows[s]) * C;
+          int rest = since;
+          for (int kk = 1; kk < k; ++kk) {
+            uint16_t* ctr = cnt + (s * (k - 1) + kk - 1) * T + tid;
+            out[kk * nslot_c] = *ctr;
+            rest -= *ctr;
+            *ctr = 0;
+          }
+          out[0] = rest;
+        }
+        since = 0;
+      }
+    }
   }
-  for (int r = 0; r < nslot; ++r) st[r * C] = sm[r * T + tid];
+  for (int s = 0; s < L; ++s)
+    st[rows[s] * C] = static_cast<int32_t>((sm[(s >> RSH) * T + tid] >> ((s & RMASK) * BITS)) & VMASK);
 }
 
+// The site-parallel form, for launches too small to fill the card with
+// one thread per chain: one warp per (variant, chain), and the lanes take
+// the live sites of a color side by side (they are independent given the
+// rest, and kernel order sorts a color by degree, so neighbouring lanes do
+// like work), with __syncwarp() between colors.  Same site function, same
+// hash row, lane and counter, so the same draws.  A chain's state is one
+// byte a row here, since lanes write neighbouring rows at once; counts are
+// reductions.  blockDim.x / 32 chains share a block's staged lists.
 template <int KMAX, bool COUNT>
-cudaError_t launch(const int32_t* k_scope, const int32_t* k_strides,
-                   const float* k_tables, const uint8_t* k_kmask, int32_t* state,
-                   int32_t* counts, int n, int nc, int g, int f, int s, int oa,
-                   int k, int nvp, int c, uint32_t seed, int num_sweeps,
-                   int half_point, int cb, int threads, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(nvp) * threads;
-  auto kern = gibbs_window_kernel<KMAX, COUNT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((c + threads - 1) / threads, n);
-  kern<<<grid, threads, smem, stream>>>(k_scope, k_strides, k_tables, k_kmask,
-                                        state, counts, nc, g, f, s, oa, k, nvp,
-                                        c, seed, num_sweeps, half_point, cb);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(1024) gibbs_window_sites_kernel(const Params p) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.y;
+  const int c = blockIdx.x * W + warp;
+  const int k = p.k;
+  const size_t C = static_cast<size_t>(p.c_total);
+
+  const int32_t* lists = p.c_lists + static_cast<size_t>(n) * p.lw;
+  const float* tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
+  const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
+  const int L = lists[H_SITES];
+  const int R = lists[H_ROWS];
+
+  uint8_t* sp = smem;
+  if (p.stage_tables) {
+    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
+    tabs = reinterpret_cast<const float*>(sp);
+    sp += static_cast<size_t>(p.tw) * 4;
+  }
+  if (p.stage_lists) {
+    stage(sp, lists, lists[H_WORDS]);
+    lists = reinterpret_cast<const int32_t*>(sp);
+    sp += static_cast<size_t>(p.lw) * 4;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  uint8_t* sm = sp + static_cast<size_t>(warp) * p.rw;  // this chain's rows
+
+  int32_t* st = p.state + static_cast<size_t>(n) * p.nvp * C + c;
+  if (c < p.c_total)
+    for (int r = lane; r < R; r += 32) sm[r] = static_cast<uint8_t>(st[rows[r] * C]);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (c >= p.c_total) return;  // the whole warp leaves; only __syncwarp below
+
+  const int32_t* color_end = lists + lists[H_OFF_COLOR];
+  const int2* sites = reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]);
+  const int2* incs = reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]);
+  const uint32_t* scope = reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]);
+
+  const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
+  const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
+                        257u * static_cast<uint32_t>(c / p.cb);
+  const size_t nslot_c = static_cast<size_t>(p.nc) * p.g * C;
+  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot_c + c;
+
+  for (int si = 0; si < p.num_sweeps; ++si) {
+    const int hsel = si >= p.half_point ? 1 : 0;
+    int site0 = 0;
+    for (int ci = 0; ci < p.nc; ++ci) {
+      const uint32_t counter =
+          cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(p.nc) +
+                                static_cast<uint32_t>(ci));
+      const int site_end = color_end[ci];
+      for (int site = site0 + lane; site < site_end; site += 32) {
+        const int2 sw = sites[site];
+        const uint32_t gi = static_cast<uint32_t>(sw.x) & 0xFFFFu;
+        const uint32_t km = static_cast<uint32_t>(sw.x) >> 16;
+        float lg[KMAX];
+#pragma unroll
+        for (int kk = 0; kk < KMAX; ++kk) lg[kk] = 0.0f;
+        for (int inc = site > 0 ? sites[site - 1].y : 0; inc < sw.y; ++inc) {
+          const int2 iw = incs[inc];
+          int trow = iw.x;
+#pragma unroll 1
+          for (int q = inc > 0 ? incs[inc - 1].y : 0; q < iw.y; ++q) {
+            const uint32_t e = scope[q];
+            trow += static_cast<int>(sm[e & 0xFFFFu] * (e >> 16));
+          }
+          const float* t = tabs + trow * k;
+#pragma unroll
+          for (int kk = 0; kk < KMAX; ++kk)
+            if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
+        }
+        const int newv = draw_site<KMAX>(lg, km, k, gi, lane_mix, counter);
+        // no site of this color reads another: write at once
+        sm[site] = static_cast<uint8_t>(newv);
+        if (COUNT)
+          atomicAdd(cn + (static_cast<size_t>(hsel) * k + newv) * nslot_c +
+                        static_cast<size_t>(ci * p.g + gi) * C, 1);
+      }
+      __syncwarp();
+      site0 = site_end;
+    }
+  }
+  for (int s = lane; s < L; s += 32) st[rows[s] * C] = sm[s];
+}
+
+using Kernel = void (*)(const Params);
+
+template <int KMAX>
+Kernel pick_count(int count) {
+  switch (count) {
+    case COUNT_NONE: return gibbs_window_kernel<KMAX, COUNT_NONE>;
+    case COUNT_RED: return gibbs_window_kernel<KMAX, COUNT_RED>;
+    case COUNT_SHARED: return gibbs_window_kernel<KMAX, COUNT_SHARED>;
+    default: return nullptr;
+  }
 }
 
 template <int KMAX>
-cudaError_t launch_k(bool count, const int32_t* k_scope, const int32_t* k_strides,
-                     const float* k_tables, const uint8_t* k_kmask, int32_t* state,
-                     int32_t* counts, int n, int nc, int g, int f, int s, int oa,
-                     int k, int nvp, int c, uint32_t seed, int num_sweeps,
-                     int half_point, int cb, int threads, cudaStream_t stream) {
-  if (count)
-    return launch<KMAX, true>(k_scope, k_strides, k_tables, k_kmask, state, counts,
-                              n, nc, g, f, s, oa, k, nvp, c, seed, num_sweeps,
-                              half_point, cb, threads, stream);
-  return launch<KMAX, false>(k_scope, k_strides, k_tables, k_kmask, state, counts,
-                             n, nc, g, f, s, oa, k, nvp, c, seed, num_sweeps,
-                             half_point, cb, threads, stream);
+Kernel pick_sites(int count) {
+  switch (count) {
+    case COUNT_NONE: return gibbs_window_sites_kernel<KMAX, false>;
+    case COUNT_RED: return gibbs_window_sites_kernel<KMAX, true>;
+    default: return nullptr;
+  }
 }
 
-template <int KMAX, bool COUNT>
-cudaError_t occupancy(int threads, size_t smem, int* blocks) {
-  auto kern = gibbs_window_kernel<KMAX, COUNT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
-}
-
-template <int KMAX>
-cudaError_t occupancy_k(bool count, int threads, size_t smem, int* blocks) {
-  return count ? occupancy<KMAX, true>(threads, smem, blocks)
-               : occupancy<KMAX, false>(threads, smem, blocks);
+// The template instance for card bound k, counts form `count` and the
+// thread-per-chain (sites == 0) or site-parallel form; nullptr for a card
+// above 16 or a form that does not exist.
+Kernel pick(int k, int count, int sites) {
+  if (k <= 2) return sites ? pick_sites<2>(count) : pick_count<2>(count);
+  if (k <= 4) return sites ? pick_sites<4>(count) : pick_count<4>(count);
+  if (k <= 8) return sites ? pick_sites<8>(count) : pick_count<8>(count);
+  if (k <= 16) return sites ? pick_sites<16>(count) : pick_count<16>(count);
+  return nullptr;
 }
 
 }  // namespace
 
-// Resident blocks per SM for a launch of `threads` threads over `nvp` state
-// rows at card bound k (the same template instance gibbs_window_launch
-// picks).  Returns a cudaError_t; 1000 = card above 16.
-extern "C" int gibbs_window_occupancy(int k, int count, int threads, int nvp,
-                                      void* blocks) {
-  const size_t smem = static_cast<size_t>(nvp) * threads;
-  auto* out = static_cast<int*>(blocks);
-  const bool cnt = count != 0;
-  if (k <= 2) return occupancy_k<2>(cnt, threads, smem, out);
-  if (k <= 4) return occupancy_k<4>(cnt, threads, smem, out);
-  if (k <= 8) return occupancy_k<8>(cnt, threads, smem, out);
-  if (k <= 16) return occupancy_k<16>(cnt, threads, smem, out);
-  return 1000;
+// Every entry point returns a cudaError_t (0 = success); 1000 = no kernel
+// for this card bound and form (the wrapper's gate refuses it first).
+
+// out[0..3] = resident blocks per SM for `threads` threads and `smem` bytes
+// of dynamic shared memory, registers per thread, bytes of local memory
+// per thread (spills), and the most threads a block may have.
+extern "C" int gibbs_window_occupancy(int k, int count, int sites, int threads,
+                                      int smem, void* out4) {
+  Kernel kern = pick(k, count, sites);
+  if (kern == nullptr) return 1000;
+  auto* out = static_cast<int*>(out4);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return err;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = attr.maxThreadsPerBlock;
+  return cudaSuccess;
 }
 
-// C entry point, bound with ctypes.  Returns a cudaError_t (0 = success);
-// 1000 = card above 16 (the wrapper's gate refuses it first).
+// One window for n variants x c chains on `stream`; see Params.  `sites`
+// picks the site-parallel form (a warp per chain, `threads` a multiple of
+// 32) over the thread-per-chain form.
 extern "C" int gibbs_window_launch(
-    const void* k_scope, const void* k_strides, const void* k_tables,
-    const void* k_kmask, void* state, void* counts, int n, int nc, int g, int f,
-    int s, int oa, int k, int nvp, int c, int seed, int num_sweeps,
-    int half_point, int cb, int count, int threads, void* stream) {
-  const auto* sc = static_cast<const int32_t*>(k_scope);
-  const auto* sd = static_cast<const int32_t*>(k_strides);
-  const auto* tb = static_cast<const float*>(k_tables);
-  const auto* km = static_cast<const uint8_t*>(k_kmask);
-  auto* st = static_cast<int32_t*>(state);
-  auto* cn = static_cast<int32_t*>(counts);
-  const auto useed = static_cast<uint32_t>(seed);
-  auto strm = static_cast<cudaStream_t>(stream);
-  const bool cnt = count != 0;
-  if (k <= 2)
-    return launch_k<2>(cnt, sc, sd, tb, km, st, cn, n, nc, g, f, s, oa, k, nvp, c,
-                       useed, num_sweeps, half_point, cb, threads, strm);
-  if (k <= 4)
-    return launch_k<4>(cnt, sc, sd, tb, km, st, cn, n, nc, g, f, s, oa, k, nvp, c,
-                       useed, num_sweeps, half_point, cb, threads, strm);
-  if (k <= 8)
-    return launch_k<8>(cnt, sc, sd, tb, km, st, cn, n, nc, g, f, s, oa, k, nvp, c,
-                       useed, num_sweeps, half_point, cb, threads, strm);
-  if (k <= 16)
-    return launch_k<16>(cnt, sc, sd, tb, km, st, cn, n, nc, g, f, s, oa, k, nvp, c,
-                        useed, num_sweeps, half_point, cb, threads, strm);
-  return 1000;
+    const void* c_lists, const void* c_tables, const void* c_rows, void* state,
+    void* counts, int n, int lw, int tw, int rw, int nc, int g, int k, int nvp,
+    int c, int seed, int num_sweeps, int half_point, int cb, int count, int sites,
+    int stage_lists, int stage_tables, int state_words, int threads, int smem,
+    void* stream) {
+  Kernel kern = pick(k, count, sites);
+  if (kern == nullptr) return 1000;
+  Params p;
+  p.c_lists = static_cast<const int32_t*>(c_lists);
+  p.c_tables = static_cast<const float*>(c_tables);
+  p.c_rows = static_cast<const int32_t*>(c_rows);
+  p.state = static_cast<int32_t*>(state);
+  p.counts = static_cast<int32_t*>(counts);
+  p.lw = lw; p.tw = tw; p.rw = rw; p.nc = nc; p.g = g; p.k = k; p.nvp = nvp;
+  p.c_total = c;
+  p.seed = static_cast<uint32_t>(seed);
+  p.num_sweeps = num_sweeps; p.half_point = half_point; p.cb = cb;
+  p.stage_lists = stage_lists; p.stage_tables = stage_tables;
+  p.state_words = state_words;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int per_block = sites ? threads / 32 : threads;  // chains
+  dim3 grid((c + per_block - 1) / per_block, n);
+  kern<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
 }

@@ -3,11 +3,13 @@
 One shared library with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libgrample_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/libgrample_<hash>.so csrc/*.cu
 
 The library lands in ``grample_tpu_torch/_build/`` (ignored by git),
-built at first use and rebuilt when the sources' hash changes.  A failed
-build raises; nothing falls back.
+built at first use and rebuilt when the sources' hash changes; what the
+compiler printed (``-Xptxas -v``: registers, spills and shared memory of
+every kernel instance) is kept beside it as ``.log``.  A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources() -> list:
@@ -68,5 +70,7 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                 f"{proc.stdout}{proc.stderr}")
+        with open(path + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
         os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return ctypes.CDLL(path)

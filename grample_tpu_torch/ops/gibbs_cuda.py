@@ -1,108 +1,246 @@
 """ctypes binding of the Hopper sweep kernel (``csrc/gibbs_window.cu``).
 
-``gibbs_window`` takes the same arguments as
-``ops.gibbs_torch.window_plain`` and returns the same ``(state, counts)``,
-but only for CUDA tensors: it launches the kernel on the current stream
-or raises.  ``gibbs_window.launches`` counts its launches.
+``gibbs_window`` computes what ``ops.gibbs_torch.window_plain`` computes
+and returns the same ``(state, counts)``, but only for CUDA tensors: it
+launches the kernel on the current stream or raises.
+``gibbs_window.launches`` counts its launches, and
+``gibbs_window.launches_by_form`` the same by counts form.
+
+The kernel reads the compact work lists of ``ops.layout`` (``c_lists``,
+``c_tables``, ``c_rows``), never the dense rectangles: on this card a
+window is bound by the instructions issued per site and by how many warps
+an SM keeps resident, so the launch is shaped (``plan_launch``) from the
+bytes the live work needs, not from the caps:
+
+  - form: one thread per (variant, chain), unless even one warp per
+    chain would not oversubscribe the card (``32 * N * C`` within its
+    resident-thread slots, as the split group's aux launches are): then
+    the site-parallel form, a warp per chain whose lanes take the live
+    sites of a colour side by side;
+  - block width, thread per chain: the widest of ``THREAD_CHOICES`` that
+    still gives every SM a block (a launch too small for that takes
+    32-thread blocks, to spread over as many SMs as it can), halved until
+    the packed state of a block fits shared memory;
+  - block width, site-parallel: the chains per block of ``SITE_CHAINS``
+    that need the fewest waves of resident blocks, the narrowest of
+    those (more SMs at work);
+  - the lists, then the tables, are staged in shared memory when they fit
+    beside the state; otherwise they are read from device memory;
+  - counts: 16-bit counters in shared memory, flushed at the half point
+    and at the end (``COUNT_SHARED``), when they fit in ``SHARED_COUNT_SHARE``
+    of a block's shared memory and neither half has more than 65535
+    sweeps; otherwise one reduction without a return value per site into
+    the count tensor (``COUNT_RED``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from grample_tpu_torch.ops import _build
+from grample_tpu_torch.ops.layout import COMPACT_KEYS, MAX_DENSE_ROWS
 
-#: the kernel keeps a block's chain states in shared memory as uint8
-#: [NVp][threads]; H100 gives one block at most 227 KB
+#: H100 gives one block at most 227 KB of shared memory
 MAX_SMEM_BYTES = 232448
-THREAD_CHOICES = (128, 64, 32)
+THREAD_CHOICES = (256, 128, 64, 32)
 MAX_CARD = 16
+#: a scope word of the compact lists holds a state row in 16 bits
+MAX_ROWS = MAX_DENSE_ROWS
+
+#: resident threads and shared memory of one SM, blocks it can hold
+SM_THREADS, SM_SMEM_BYTES, SM_BLOCKS = 2048, 233472, 32
+#: chains (warps) per block of the site-parallel form
+SITE_CHAINS = (4, 8, 16, 32)
+
+COUNT_NONE, COUNT_RED, COUNT_SHARED = 0, 1, 2
+#: the share of a block's shared memory the 16-bit counters may take with
+#: everything else before the launch counts by reductions instead
+SHARED_COUNT_SHARE = 0.5
 
 
-def pick_threads(nvp: int) -> int:
-    """Largest block width whose [NVp][threads] uint8 state fits shared
-    memory; 0 when even 32 threads do not fit."""
-    for t in THREAD_CHOICES:
-        if nvp * t <= MAX_SMEM_BYTES:
-            return t
-    return 0
+def state_bits(k: int) -> int:
+    """Bits of a packed state row at card bound ``k``."""
+    return 1 if k <= 2 else 2 if k <= 4 else 4
+
+
+def state_words(rows: int, k: int) -> int:
+    """32-bit words of one chain's packed state over ``rows`` rows."""
+    return -(-rows * state_bits(k) // 32)
+
+
+def state_bytes(rows: int, k: int, threads: int) -> int:
+    """Shared-memory bytes of a block's packed chain states."""
+    return state_words(rows, k) * 4 * threads
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The shape of one launch; every byte count is per block."""
+
+    sites: bool  # the site-parallel form (a warp per chain)
+    threads: int
+    stage_lists: bool
+    stage_tables: bool
+    counts_form: int
+    list_bytes: int  # the group's padded list blob
+    table_bytes: int  # the group's padded compact tables
+    state_bytes: int
+    counter_bytes: int
+
+    @property
+    def smem(self) -> int:
+        return (self.state_bytes + self.counter_bytes
+                + self.list_bytes * self.stage_lists
+                + self.table_bytes * self.stage_tables)
+
+
+def _staging(fixed: int, list_bytes: int, table_bytes: int) -> tuple:
+    """(stage lists, stage tables) beside ``fixed`` bytes of state."""
+    stage_lists = fixed + list_bytes <= MAX_SMEM_BYTES
+    return stage_lists, stage_lists and fixed + list_bytes + table_bytes <= MAX_SMEM_BYTES
+
+
+def plan_launch(kst: dict, c: int, count: bool, num_sweeps: int, half_point: int,
+                sm_count: int, counts_form=None, sites=None) -> Plan:
+    """The launch shape the module doc's rules give for ``c`` chains of
+    each variant of ``kst``.  ``counts_form`` and ``sites`` override the
+    counts rule and the form rule (the smoke run and the tests hold each
+    form against the plain version); a form that does not fit raises."""
+    n, list_bytes = kst["c_lists"].shape[0], kst["c_lists"].shape[1] * 4
+    table_bytes = kst["c_tables"].shape[1] * 4
+    rows, k = kst["c_rows"].shape[1], kst["k_kmask"].shape[3]
+    if sites is None:
+        sites = 32 * n * c <= sm_count * SM_THREADS
+    if sites:
+        best = None
+        for w in SITE_CHAINS:
+            stage = _staging(w * rows, list_bytes, table_bytes)
+            smem = w * rows + list_bytes * stage[0] + table_bytes * stage[1]
+            resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // (32 * w), SM_BLOCKS)
+            if smem > MAX_SMEM_BYTES or resident < 1:
+                continue
+            waves = -(-n * -(-c // w) // (resident * sm_count))
+            if best is None or waves < best[0]:
+                best = (waves, w, stage)
+        if best is None:
+            raise ValueError(f"{rows} state rows exceed shared memory at {SITE_CHAINS[0]} "
+                             "chains per block")
+        if counts_form == COUNT_SHARED:
+            raise ValueError("the site-parallel form counts by reductions only")
+        _, w, stage = best
+        return Plan(True, 32 * w, *stage, COUNT_RED if count else COUNT_NONE,
+                    list_bytes, table_bytes, w * rows, 0)
+    threads = next((t for t in THREAD_CHOICES if n * -(-c // t) >= sm_count),
+                   THREAD_CHOICES[-1])
+    while threads > 32 and state_bytes(rows, k, threads) > MAX_SMEM_BYTES:
+        threads //= 2
+    sbytes = state_bytes(rows, k, threads)
+    if sbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{rows} state rows exceed shared memory at 32 threads")
+    stage_lists, stage_tables = _staging(sbytes, list_bytes, table_bytes)
+    staged = sbytes + list_bytes * stage_lists + table_bytes * stage_tables
+    counters = rows * (k - 1) * threads * 2  # live sites <= rows
+    fits16 = max(half_point, num_sweeps - half_point) <= 0xFFFF
+    if not count:
+        form = COUNT_NONE
+    elif counts_form is not None:
+        form = counts_form
+        if form == COUNT_SHARED and not (fits16 and staged + counters <= MAX_SMEM_BYTES):
+            raise ValueError("shared-memory counters do not fit this launch")
+    else:
+        shared = fits16 and staged + counters <= SHARED_COUNT_SHARE * MAX_SMEM_BYTES
+        form = COUNT_SHARED if shared else COUNT_RED
+    return Plan(False, threads, stage_lists, stage_tables, form, list_bytes, table_bytes,
+                sbytes, counters if form == COUNT_SHARED else 0)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     fn = lib.gibbs_window_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     occ = lib.gibbs_window_occupancy
-    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     occ.restype = ctypes.c_int
     return lib
 
 
-def occupancy(k: int, count: bool, nvp: int) -> tuple:
-    """(threads per block, resident blocks per SM) of a window launch over
-    ``nvp`` state rows at max card ``k``, as the CUDA runtime reports it
-    for the current device."""
-    threads = pick_threads(nvp)
-    if threads == 0 or k > MAX_CARD:
-        raise ValueError(f"no launch for nvp={nvp} k={k}")
-    blocks = ctypes.c_int(0)
-    err = _lib().gibbs_window_occupancy(int(k), int(bool(count)), threads, int(nvp),
-                                        ctypes.addressof(blocks))
+def occupancy(k: int, plan: Plan) -> dict:
+    """What the CUDA runtime reports for ``plan``'s kernel at card bound
+    ``k`` on the current device: resident blocks per SM, registers per
+    thread, bytes of local memory (spills) per thread, and the most
+    threads a block may have."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().gibbs_window_occupancy(int(k), plan.counts_form, int(plan.sites),
+                                        plan.threads, plan.smem, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"gibbs_window_occupancy failed: CUDA error {err}")
-    return threads, blocks.value
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "max_threads"), out))
 
 
-def gibbs_window(k_scope, k_strides, k_tables, k_kmask, state, seed: int,
-                 num_sweeps: int, half_point: int, count: bool, cb: int):
+def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
+                 count: bool, cb: int, counts_form=None, sites=None):
     """One advance window on the card (see ``window_plain`` for the
-    contract); ``state`` is updated in place."""
-    n, nc, g, f, s = k_scope.shape
-    oa, k = k_tables.shape[4], k_tables.shape[5]
+    contract); ``kst`` is ``ops.sweep.sweep_tensors`` output, ``state`` is
+    updated in place.  Padding rows are neither counted nor written."""
+    n, nc, g, k = kst["k_kmask"].shape
+    if tuple(state.shape[:1]) != (n,) or state.dim() != 3:
+        raise ValueError(f"state {tuple(state.shape)} does not stack {n} variants")
     nvp, c = state.shape[1], state.shape[2]
     dev = state.device
-    expect = {
-        "k_scope": (k_scope, torch.int32, (n, nc, g, f, s)),
-        "k_strides": (k_strides, torch.int32, (n, nc, g, f, s)),
-        "k_tables": (k_tables, torch.float32, (n, nc, g, f, oa, k)),
-        "k_kmask": (k_kmask, torch.uint8, (n, nc, g, k)),
-        "state": (state, torch.int32, (n, nvp, c)),
-    }
+    expect = {key: (kst[key], torch.float32 if key == "c_tables" else torch.int32,
+                    (n, kst[key].shape[-1])) for key in COMPACT_KEYS}
+    expect["state"] = (state, torch.int32, (n, nvp, c))
     for name, (t, dtype, shape) in expect.items():
         if t.device != dev or not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
         if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    if kst["c_lists"].shape[1] % 4 or kst["c_tables"].shape[1] % 4:
+        raise ValueError("compact lists and tables must be padded to 16 bytes")
     if k > MAX_CARD:
         raise ValueError(f"max card {k} > {MAX_CARD}: not taken by the sweep kernel")
-    threads = pick_threads(nvp)
-    if threads == 0:
-        raise ValueError(f"{nvp} state rows exceed shared memory at 32 threads")
-    if cb <= 0 or c <= 0 or n <= 0:
+    if cb <= 0 or c <= 0 or n <= 0 or n > 65535:
         raise ValueError(f"bad window shape n={n} c={c} cb={cb}")
+    plan = plan_launch(kst, c, count, int(num_sweeps), int(half_point),
+                       torch.cuda.get_device_properties(dev).multi_processor_count,
+                       counts_form, sites)
     counts = (torch.zeros((n, 2, k, nc * g, c), dtype=torch.int32, device=dev)
               if count else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().gibbs_window_launch(
-            k_scope.data_ptr(), k_strides.data_ptr(), k_tables.data_ptr(),
-            k_kmask.data_ptr(), state.data_ptr(),
+            kst["c_lists"].data_ptr(), kst["c_tables"].data_ptr(),
+            kst["c_rows"].data_ptr(), state.data_ptr(),
             counts.data_ptr() if count else None,
-            n, nc, g, f, s, oa, k, nvp, c, _as_int32(seed), int(num_sweeps),
-            int(half_point), int(cb), int(bool(count)), threads, stream)
+            n, kst["c_lists"].shape[1], kst["c_tables"].shape[1],
+            kst["c_rows"].shape[1], nc, g, k, nvp, c, _as_int32(seed),
+            int(num_sweeps), int(half_point), int(cb), plan.counts_form,
+            int(plan.sites), int(plan.stage_lists), int(plan.stage_tables),
+            state_words(kst["c_rows"].shape[1], k), plan.threads, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"gibbs_window_launch failed: CUDA error {err}")
     gibbs_window.launches += 1
+    name = form_name(plan)
+    gibbs_window.launches_by_form[name] = gibbs_window.launches_by_form.get(name, 0) + 1
     return state, counts
 
 
 gibbs_window.launches = 0
+#: the same count split by kernel form (``form_name``)
+gibbs_window.launches_by_form = {}
+
+
+def form_name(plan: Plan) -> str:
+    """The kernel form a plan launches, as ``launches_by_form`` keys it."""
+    return (("site-parallel" if plan.sites else "thread per chain") + ", "
+            + ("uncounted", "reductions", "shared counters")[plan.counts_form])
 
 
 def _as_int32(x: int) -> int:

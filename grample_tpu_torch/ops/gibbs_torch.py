@@ -122,8 +122,11 @@ def window_plain(k_scope, k_strides, k_tables, k_kmask, state, seed: int,
     k_*: kernel-order constants ``[N, ...]`` (``ops.layout``); state
     ``[N, NVp, C]`` int32, kernel row order (updated in place and
     returned); counts ``[N, 2, K, NSLOT, C]`` int32, zero-initialised
-    here, or None when ``count`` is False.  ``cb`` is the hash's lane
-    width: chain c hashes as lane ``c % cb`` of block ``c // cb``.
+    here, or None when ``count`` is False.  Only live rows (any
+    ``k_kmask`` bit) are counted: a padding row's counts stay 0, its
+    state is still overwritten with the draw of an all-masked row, 0.
+    ``cb`` is the hash's lane width: chain c hashes as lane ``c % cb`` of
+    block ``c // cb``.
     """
     n, nc, G = k_scope.shape[:3]
     K = k_tables.shape[5]
@@ -135,7 +138,7 @@ def window_plain(k_scope, k_strides, k_tables, k_kmask, state, seed: int,
     lanes = chain[None, :] % cb
     rid = torch.arange(G, dtype=torch.int64, device=dev)[:, None]
     mask_f = k_kmask.to(torch.float32)  # [N, NC, G, K]
-    ones = torch.ones((1, G, C), dtype=torch.int32, device=dev)
+    live = k_kmask.any(dim=3).to(torch.int32)  # [N, NC, G]
     for ni in range(n):
         st = state[ni]  # [NVp, C] view, written in place
         cell = window_cell(seed, ni, chain // cb)  # [C]
@@ -148,5 +151,6 @@ def window_plain(k_scope, k_strides, k_tables, k_kmask, state, seed: int,
                 st[ci * G:(ci + 1) * G] = newv
                 if count:
                     cnt = counts[ni, hsel, :, ci * G:(ci + 1) * G]  # [K, G, C]
-                    cnt.scatter_add_(0, newv.long()[None], ones)
+                    cnt.scatter_add_(0, newv.long()[None],
+                                     live[ni, ci, None, :, None].expand(1, G, C))
     return state, counts

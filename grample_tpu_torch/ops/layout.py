@@ -21,11 +21,60 @@ leading axis N) to:
 
 Rows at and beyond ``NC * G`` (sentinel, evidence tail) keep their encode
 order and are never written by a sweep.
+
+The dense rectangles above are padded to the caps of the whole group:
+on a Promedus-shaped collapse encoding fewer than one slot row in four is
+a site, one incidence slot in twelve carries a table, and one scope slot
+in eighty has a stride.  A GPU pays for every padded slot it visits, so
+``kernel_stack`` also derives **compact work lists** (``compact_variant``)
+that hold the live work only; the CUDA kernel walks these and nothing
+else.  The dense tensors stay as the plain version's input.
+
+  c_lists  [N, LW] int32 — one self-describing blob per variant: a header
+           of ``HDR`` words (see ``H_*``), then, each section starting on
+           a 4-word boundary,
+             color_end [NC]      end index (into sites) of each colour
+             sites     [L, 2]    (gi | kmask bits << 16, end index into incs)
+             incs      [I, 2]    (first table row, end index into scope)
+             scope     [Q]       dense state row | stride << 16
+           live sites colour-major in kernel order; a site's live
+           incidences in ``f`` order; an incidence's live scope entries in
+           ``s`` order.  ``gi`` is the site's row within its colour in
+           kernel order (its hash row); its count slot is ``ci * G + gi``.
+  c_tables [N, TW] f32 — the live incidences' tables back to back, each
+           cut to the rows its strides can reach, ``K`` floats a row
+  c_rows   [N, RW] int32 — dense state row -> kernel row: the ``L`` live
+           sites first, in list order, then the tail rows that some live
+           scope entry reads.  The kernel keeps these rows of a chain's
+           state on chip and no others.
+
+A row is live when its ``k_kmask`` has any bit; an incidence when its
+site is live and its table is not identically zero (adding an all-zero
+row changes no sum: ``x + 0.0f == x``); a scope entry when its incidence
+is live and its stride is positive.  ``LW``, ``TW`` and ``RW`` are the
+largest need among the stacked variants, rounded up (``pad_compact``), so
+a group's tensors keep one shape while variants come and go.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+#: words of a ``c_lists`` header, and what each holds
+HDR = 16
+(H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_OFF_COLOR, H_OFF_SITES,
+ H_OFF_INCS, H_OFF_SCOPE, H_WORDS) = range(10)
+
+COMPACT_KEYS = ("c_lists", "c_tables", "c_rows")
+
+#: capacities are rounded up to these many elements (lists and tables in
+#: 16-byte units for the kernel's asynchronous copies, with some slack so
+#: that a slightly larger variant still fits the group's tensors)
+_ROUND = {"c_lists": 256, "c_tables": 1024, "c_rows": 32}
+
+#: a scope word packs the dense row into 16 bits and the stride above it
+MAX_DENSE_ROWS = 1 << 16
+MAX_STRIDE = 1 << 15
 
 
 def kernel_perm(local_tables: np.ndarray) -> np.ndarray:
@@ -63,4 +112,89 @@ def kernel_stack(stack: dict) -> dict:
             np.where(soo < nslot, pal_of_shared[np.minimum(soo, nvp - 1)],
                      nslot))
     dtypes = {"k_tables": np.float32, "k_kmask": np.uint8}
-    return {k: np.stack(v).astype(dtypes.get(k, np.int32)) for k, v in out.items()}
+    dense = {k: np.stack(v).astype(dtypes.get(k, np.int32)) for k, v in out.items()}
+    return {**dense, **compact_stack(dense, stack["cards"])}
+
+
+def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards) -> dict:
+    """Compact work lists of one variant from its dense kernel-order
+    arrays (no leading axis) and the card of every kernel row
+    ``row_cards`` [NVp]; unpadded.  See the module doc for the format."""
+    nc, G, F, S = k_scope.shape
+    oa, K = k_tables.shape[3:]
+    if G > MAX_DENSE_ROWS or K > 16:
+        raise ValueError(f"group of {G} rows at card {K} does not fit a site word")
+    live_site = k_kmask.astype(bool).any(axis=2)  # [NC, G]
+    live_inc = (np.abs(k_tables).max(axis=(3, 4)) > 0) & live_site[..., None]
+    ci, gi = np.nonzero(live_site)  # colour-major, kernel order
+    inc_of_site = live_inc[live_site]  # [L, F]
+    scope = k_scope[live_site][inc_of_site]  # [I, S] kernel rows
+    strides = k_strides[live_site][inc_of_site]
+    live_sc = strides > 0
+    if strides.size and strides.max() >= MAX_STRIDE:
+        raise ValueError(f"stride {strides.max()} does not fit a scope word")
+
+    site_rows = (ci * G + gi).astype(np.int64)
+    read = np.unique(scope[live_sc])
+    rows = np.concatenate([site_rows, read[~np.isin(read, site_rows)]])
+    if rows.size > MAX_DENSE_ROWS:
+        raise ValueError(f"{rows.size} live state rows do not fit a scope word")
+    dense_of = np.full(row_cards.shape[0], -1, dtype=np.int64)
+    dense_of[rows] = np.arange(rows.size)
+
+    # rows an incidence's strides can reach: 1 + the largest base
+    reach = 1 + ((row_cards[scope] - 1) * strides * live_sc).sum(axis=1)
+    reach = np.minimum(reach, oa)
+    first_row = np.cumsum(reach) - reach
+    tables = k_tables[live_site][inc_of_site]  # [I, OA, K]
+    tables = tables[np.arange(oa)[None, :] < reach[:, None]].reshape(-1)
+
+    kbits = (k_kmask[live_site].astype(np.int64) << np.arange(K)).sum(axis=1)
+    sections = [
+        np.cumsum(live_site.sum(axis=1)),  # color_end
+        np.stack([gi | (kbits << 16), np.cumsum(inc_of_site.sum(axis=1))],
+                 axis=1).reshape(-1),  # sites
+        np.stack([first_row, np.cumsum(live_sc.sum(axis=1))], axis=1).reshape(-1),  # incs
+        dense_of[scope[live_sc]] | (strides[live_sc].astype(np.int64) << 16),  # scope
+    ]
+    head = np.zeros(HDR, dtype=np.int64)
+    head[[H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS]] = (
+        ci.size, rows.size, scope.shape[0], int(live_sc.sum()), tables.size)
+    words = [head]
+    off = HDR
+    for h, sec in zip((H_OFF_COLOR, H_OFF_SITES, H_OFF_INCS, H_OFF_SCOPE), sections):
+        head[h] = off
+        sec = np.concatenate([sec, np.zeros(-sec.size % 4, dtype=np.int64)])
+        words.append(sec)
+        off += sec.size
+    head[H_WORDS] = off
+    return {"c_lists": np.concatenate(words).astype(np.int32),
+            "c_tables": tables.astype(np.float32),
+            "c_rows": rows.astype(np.int32)}
+
+
+def compact_capacity(key: str, need: int) -> int:
+    """The padded length of compact tensor ``key`` for a need of ``need``."""
+    m = _ROUND[key]
+    return max(m, -(-int(need) // m) * m)
+
+
+def compact_stack(dense: dict, cards: np.ndarray) -> dict:
+    """Compact work lists of every variant of ``kernel_stack``'s dense
+    output (``cards`` [N, V+1] by old var id), zero-padded to one
+    capacity per tensor and stacked."""
+    per = [compact_variant(dense["k_scope"][i], dense["k_strides"][i],
+                           dense["k_tables"][i], dense["k_kmask"][i],
+                           np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64))
+           for i in range(dense["k_scope"].shape[0])]
+    out = {}
+    for key in COMPACT_KEYS:
+        cap = compact_capacity(key, max(p[key].size for p in per))
+        out[key] = np.stack([np.pad(p[key], (0, cap - p[key].size)) for p in per])
+    return out
+
+
+def compact_counts(c_lists) -> np.ndarray:
+    """[N, 5] live sites, state rows, incidences, scope entries and table
+    floats of each variant, read from the headers of ``c_lists``."""
+    return np.asarray(c_lists)[:, [H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS]]

@@ -8,10 +8,16 @@ slot counts ``[N, 2, K, NSLOT, C]`` onto the split-half window tensor
 
 The window runs the CUDA kernel (``ops.gibbs_cuda``) for CUDA tensors and
 its plain PyTorch version (``ops.gibbs_torch``) for CPU tensors; a CUDA
-tensor never takes the plain path.  ``check_supported`` is the gate: the
-sweep takes the dense local-table bank only, local tables of at most
-``OA_MAX`` rows, cards up to 16, and state that fits the kernel's shared
-memory.
+tensor never takes the plain path.  ``sweep_tensors`` carries both
+inputs: the dense kernel-order rectangles that the plain version reads,
+and the compact work lists (``ops.layout``) that the kernel walks, since
+on the card a window is bound by the instructions and shared-memory
+loads it issues per slot visited, and most slots of the rectangles are
+padding.  ``check_supported`` is the gate: the sweep takes the dense
+local-table bank only, local tables of at most ``OA_MAX`` rows, cards up
+to 16, and at most ``gibbs_cuda.MAX_ROWS`` state rows whose packed state
+fits a 32-thread block's shared memory (what a launch really needs is
+sized from its live rows, by ``gibbs_cuda.plan_launch``).
 
 One code path serves every table width.  The reference kernel has two
 lookup forms (an unrolled select chain up to 32 rows, a counted loop up
@@ -31,7 +37,7 @@ import torch.nn.functional as fnn
 
 from grample_tpu_torch.ops import gibbs_cuda
 from grample_tpu_torch.ops.gibbs_torch import window_plain
-from grample_tpu_torch.ops.layout import kernel_stack
+from grample_tpu_torch.ops.layout import COMPACT_KEYS, kernel_stack
 from grample_tpu_torch.pgm.encode import BASE_DENSE_LIMIT
 
 #: hash lane width (the reference kernel's chain block ``cb``) used when a
@@ -57,7 +63,9 @@ def check_supported(caps) -> None:
     if caps.max_card > gibbs_cuda.MAX_CARD:
         raise ValueError(f"max card {caps.max_card} > {gibbs_cuda.MAX_CARD}: "
                          "not taken by the sweep kernel")
-    if gibbs_cuda.pick_threads(caps.num_rows) == 0:
+    if (caps.num_rows > gibbs_cuda.MAX_ROWS
+            or gibbs_cuda.state_bytes(caps.num_rows, caps.max_card, 32)
+            > gibbs_cuda.MAX_SMEM_BYTES):
         raise ValueError(f"{caps.num_rows} state rows exceed the sweep "
                          "kernel's shared memory")
 
@@ -75,16 +83,35 @@ def sweep_tensors(stack: dict, device) -> dict:
             for k, v in kernel_stack(stack).items()}
 
 
+def write_slots(kst: dict, slots, fresh: dict) -> None:
+    """Write the variants of ``fresh`` (``sweep_tensors`` output) into
+    slots ``slots`` of the group's tensors ``kst``, in place.  The dense
+    tensors share their shapes; a compact tensor (``ops.layout``) of
+    either side is first zero-padded to the longer of the two."""
+    for key, v in fresh.items():
+        if key in COMPACT_KEYS:
+            cap = max(v.shape[1], kst[key].shape[1])
+            v = fnn.pad(v, (0, cap - v.shape[1]))
+            kst[key] = fnn.pad(kst[key], (0, cap - kst[key].shape[1]))
+        kst[key][slots] = v
+
+
+def scale_tables(kst: dict, beta: float) -> dict:
+    """``kst`` with every log table (dense and compact) times ``beta``."""
+    return {**kst, "k_tables": kst["k_tables"] * beta,
+            "c_tables": kst["c_tables"] * beta}
+
+
 def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,
            count: bool, cb: int):
-    """Kernel on CUDA tensors, plain version on CPU tensors, else raise."""
-    args = [kst[k] for k in KERNEL_KEYS]
+    """Kernel (on the compact lists) for CUDA tensors, plain version (on
+    the dense tensors) for CPU tensors, else raise."""
     if state_p.is_cuda:
-        return gibbs_cuda.gibbs_window(*args, state_p, seed, num_sweeps,
+        return gibbs_cuda.gibbs_window(kst, state_p, seed, num_sweeps,
                                        half_point, count, cb)
     if state_p.device.type == "cpu":
-        return window_plain(*args, state_p, seed, num_sweeps, half_point,
-                            count, cb)
+        return window_plain(*[kst[k] for k in KERNEL_KEYS], state_p, seed,
+                            num_sweeps, half_point, count, cb)
     raise ValueError(f"no sweep for device {state_p.device}")
 
 

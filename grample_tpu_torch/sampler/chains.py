@@ -40,7 +40,9 @@ from grample_tpu_torch.ops.sweep import (
     advance_chains,
     check_supported,
     hash_block,
+    scale_tables,
     sweep_tensors,
+    write_slots,
 )
 from grample_tpu_torch.pgm.discrete import DiscreteModel
 from grample_tpu_torch.pgm.encode import (
@@ -343,9 +345,8 @@ class ChainGroup:
         if grew_any or slots[-1] >= self.slot_cap:
             self._restack(max(self.slot_cap, _next_pow2(slots[-1] + 1)))
         else:
-            fresh = sweep_tensors(stack_variants(new_encs), self.device)
-            for k, v in fresh.items():
-                self.kstack[k][slots] = v
+            write_slots(self.kstack, slots,
+                        sweep_tensors(stack_variants(new_encs), self.device))
         st = np.stack([
             self._transplant_states(enc, np.asarray(init_states))
             if init_states is not None
@@ -411,8 +412,7 @@ class ChainGroup:
                 beta = (i + 1.0) / stages
                 n = per + (sweeps - per * stages if i == stages - 1 else 0)
                 # scale only the log-potential tables; the rest is structural
-                self.kstack = stack0 if beta >= 1.0 else {
-                    **stack0, "k_tables": stack0["k_tables"] * beta}
+                self.kstack = stack0 if beta >= 1.0 else scale_tables(stack0, beta)
                 self.burn(n)
         finally:
             self.kstack = stack0

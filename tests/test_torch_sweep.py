@@ -173,7 +173,7 @@ def test_gate_refuses(case):
     bad = {
         "gather_bank": dataclasses.replace(caps, gfac_cap=1),
         "card17": dataclasses.replace(caps, max_card=17),
-        "rows": dataclasses.replace(caps, tail_cap=8000),
+        "rows": dataclasses.replace(caps, tail_cap=80000),
         "oa": dataclasses.replace(caps, oa_cap=sweep.OA_MAX + 1),
     }[case]
     with pytest.raises(ValueError, match="gather bank|max card|shared memory|local tables"):
@@ -216,7 +216,7 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     state = torch.zeros((1, enc.caps.num_rows, 8), dtype=torch.int32)
     before = gibbs_cuda.gibbs_window.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
-        gibbs_cuda.gibbs_window(*[kst[k] for k in sweep.KERNEL_KEYS], state, 0, 1, 0, True, 8)
+        gibbs_cuda.gibbs_window(kst, state, 0, 1, 0, True, 8)
     assert gibbs_cuda.gibbs_window.launches == before
     with pytest.raises(ValueError, match="no sweep for device"):
         sweep.window(kst, state.to("meta"), 0, 1, 0, True, 8)
