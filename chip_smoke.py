@@ -12,9 +12,8 @@ non-zero:
   3. the kernel against its plain PyTorch version on the card: a 10x10
      binary grid (100 vars, 280 factors, 3 evidence vars), 2 variants x
      131072 chains, the same seed and hash width, one sweep: every form
-     the kernel has (uncounted; counted by reductions; counted in
-     shared-memory counters where they fit; and whichever the wrapper's
-     rule picks).  At most 0.1 % of free sites may differ (a draw that
+     the kernel has (thread per chain and site-parallel, each counted and
+     uncounted, and whichever the wrapper's rule picks).  At most 0.1 % of free sites may differ (a draw that
      sits on a CDF boundary can flip with expf's last bit); count totals
      on free rows must equal sweeps x chains x free vars exactly and be 0
      elsewhere; evidence rows must stay;
@@ -114,16 +113,18 @@ HELL_BOUND = 0.005
 #: sampling-clock budget (s) of the adaptive CLI runs and the 5b runs
 ADAPT_SECS = 30
 #: the card's peaks for ``bound_ms``: device memory rate (H100 SXM data
-#: sheet) and thread instructions per clock (132 SMs x 4 schedulers x 32
+#: sheet) and thread operations per clock (132 SMs x 4 schedulers x 32
 #: lanes); the clock is the card's ``clocks.max.sm``
 PEAK_BYTES_PER_S = 3.35e12
 LANES = 132 * 128
-#: thread instructions of the kernel's inner loops, counted in the SASS
-#: of the binary-card instances (``cuobjdump -sass``): per live site
-#: (list words, mask, two expf, floor, hash, inverse CDF, packed write,
-#: count), per live incidence (list word, table row, adds) and per live
-#: scope entry (list word, packed state read, multiply-add)
-INSTR_PER_SITE, INSTR_PER_INC, INSTR_PER_SCOPE = 110, 14, 9
+#: thread operations of the thread-per-chain kernel's loops, counted in the
+#: SASS of its binary-card counted instance (``cuobjdump -sass`` of the
+#: built library): the site loop's body without its incidence loop (list
+#: words, mask, two expf, floor, hash, inverse CDF, packed write, count),
+#: the incidence loop's body without its scope loop (list word, table row,
+#: adds), and the scope loop's body (list word, packed state read,
+#: multiply-add)
+INSTR_PER_SITE, INSTR_PER_INC, INSTR_PER_SCOPE = 126, 18, 17
 
 
 def grid_model(side: int, seed: int):
@@ -256,26 +257,12 @@ def aux_variants():
     return [collapse_var(m, v)[0] for v in picks], aux_caps(m), picks
 
 
-def kernel_forms(torch, kst, chains, sweeps=1):
-    """(label, counted, counts form, site-parallel) of every kernel form
-    this launch shape has: the wrapper's own pick counted and uncounted;
-    thread per chain, uncounted and with each counts form by name where
-    it fits; site-parallel, uncounted and counted."""
-    from grample_tpu_torch.ops import gibbs_cuda
-
-    forms = [("rule", True, None, None), ("rule, uncounted", False, None, None),
-             ("uncounted", False, None, False),
-             ("reductions", True, gibbs_cuda.COUNT_RED, False),
-             ("site-parallel", True, None, True),
-             ("site-parallel, uncounted", False, None, True)]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    try:
-        gibbs_cuda.plan_launch(kst, chains, True, sweeps, sweeps // 2, sms,
-                               gibbs_cuda.COUNT_SHARED, False)
-        forms.append(("shared counters", True, gibbs_cuda.COUNT_SHARED, False))
-    except ValueError:
-        pass
-    return forms
+#: (label, counted, site-parallel) of every form the kernel has: the
+#: wrapper's own pick, then thread per chain and site-parallel by name
+KERNEL_FORMS = (
+    ("rule", True, None), ("rule, uncounted", False, None),
+    ("thread per chain", True, False), ("thread per chain, uncounted", False, False),
+    ("site-parallel", True, True), ("site-parallel, uncounted", False, True))
 
 
 def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label):
@@ -290,12 +277,11 @@ def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, lab
     free = free_rows.bool()
     errs = {}
     plain_out = {}
-    for form, count, counts_form, sites in kernel_forms(torch, kst, chains):
+    for form, count, by_site in KERNEL_FORMS:
         if count not in plain_out:
             plain_out[count] = window_plain(*args, state0.clone(), SEED, 1, 0, count, cb)
         sp, cp = plain_out[count]
-        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb,
-                                         counts_form, sites)
+        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb, by_site)
         torch.cuda.synchronize()
         diff = (sk[:, :nslot] != sp[:, :nslot]) & free[:, :, None]
         frac = diff.sum().item() / (free.sum().item() * chains)
@@ -326,7 +312,7 @@ def window_bound(kst, chains, sweeps, count, clock_hz):
     """(bound_ms, bound_by) of one window on ``kst``: the larger of the
     bytes it must move over the card's memory rate (state rows read once,
     site rows written once, live counts written once, lists and tables
-    read once) and the thread instructions of its live work over the
+    read once) and the thread operations of its live work over the
     card's issue rate."""
     from grample_tpu_torch.ops.layout import H_WORDS, compact_counts
 
@@ -342,7 +328,7 @@ def window_bound(kst, chains, sweeps, count, clock_hz):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def describe_launch(torch, kst, chains, sweeps, count, label, counts_form=None, sites=None):
+def describe_launch(torch, kst, chains, count, label, sites=None):
     """Print the live work of ``kst`` per variant and the launch shape the
     wrapper gives ``chains`` chains of it; returns the plan."""
     from grample_tpu_torch.ops import gibbs_cuda
@@ -352,8 +338,7 @@ def describe_launch(torch, kst, chains, sweeps, count, label, counts_form=None, 
     n, nc, g, k = kst["k_kmask"].shape
     f, s = kst["k_scope"].shape[3:]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = gibbs_cuda.plan_launch(kst, chains, count, sweeps, sweeps // 2, sms, counts_form,
-                                  sites)
+    plan = gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
     occ = gibbs_cuda.occupancy(k, plan)
     per = lambda col: f"{live[:, col].min()}-{live[:, col].max()}"  # noqa: E731
     print(f"launch, {label}: per variant live rows {per(0)} of {nc * g} slots, state rows "
@@ -368,8 +353,7 @@ def describe_launch(torch, kst, chains, sweeps, count, label, counts_form=None, 
           f"(spills); shared memory per block {plan.smem} bytes: lists "
           f"{plan.list_bytes} ({'staged' if plan.stage_lists else 'in device memory'}), "
           f"tables {plan.table_bytes} ({'staged' if plan.stage_tables else 'in device memory'}), "
-          f"state {plan.state_bytes}, counters {plan.counter_bytes}; counts form "
-          f"{plan.counts_form}", flush=True)
+          f"state {plan.state_bytes}", flush=True)
     return plan
 
 
@@ -465,7 +449,6 @@ def main() -> int:
     cb = hash_block(GRID_CHAINS)
     grid_errs = compare_window(torch, kst, state0, free_rows, n_free, caps.num_slots,
                                GRID_CHAINS, cb, "10x10 grid")
-    check("shared counters" in grid_errs, "the grid launch has no shared-counter form")
 
     # ---- 3b. the wide-table form against the plain version -------------------
     t0 = time.perf_counter()
@@ -693,8 +676,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1)
 
-    def kern(kst_, counts_form=None, sites=None):
-        return lambda *a: gibbs_cuda.gibbs_window(kst_, *a, counts_form, sites)
+    def kern(kst_, sites=None):
+        return lambda *a: gibbs_cuda.gibbs_window(kst_, *a, sites)
 
     def plain(kst_):
         return lambda *a: window_plain(*[kst_[k] for k in KERNEL_KEYS], *a)
@@ -739,11 +722,9 @@ def main() -> int:
     plain_ms = timed(plain(kst), state0, TIMED_SWEEPS)
     plain_unc_ms = timed(plain(kst), state0, TIMED_SWEEPS, False)
     grid_ms = {}
-    for form, count, counts_form, by_site in kernel_forms(torch, kst, GRID_CHAINS,
-                                                          TIMED_SWEEPS):
-        plan = describe_launch(torch, kst, GRID_CHAINS, TIMED_SWEEPS, count,
-                               f"{grid_label}, {form}", counts_form, by_site)
-        grid_ms[form] = best(kern(kst, counts_form, by_site), state0, TIMED_SWEEPS, count)
+    for form, count, by_site in KERNEL_FORMS:
+        plan = describe_launch(torch, kst, GRID_CHAINS, count, f"{grid_label}, {form}", by_site)
+        grid_ms[form] = best(kern(kst, by_site), state0, TIMED_SWEEPS, count)
         bound = window_bound(kst, GRID_CHAINS, TIMED_SWEEPS, count, clock_hz)
         rate_line(f"{grid_label}, {form}", sites, grid_ms[form],
                   plain_ms if count else plain_unc_ms, bound)
@@ -753,8 +734,7 @@ def main() -> int:
                    plain_ms if count else plain_unc_ms, bound)
     kernel_ms = grid_ms["rule"]
     print(f"timing: the same window uncounted: {grid_ms['rule, uncounted'] / kernel_ms:.3f} of the "
-          f"counted window; shared counters / reductions "
-          f"{grid_ms['shared counters'] / grid_ms['reductions']:.3f}", flush=True)
+          f"counted window", flush=True)
 
     # the collapse-headroom encodings of phase 3c, kernel and plain
     for label, kst_h, st_h, nf, chains, sweeps, err, replaces in (
@@ -766,16 +746,15 @@ def main() -> int:
              "grample_tpu/ops/gibbs_pallas.py:355-367")):
         cb_h = hash_block(chains)
         label = f"{label}, {sweeps}-sweep counted window"
-        describe_launch(torch, kst_h, chains, sweeps, True, label)
+        describe_launch(torch, kst_h, chains, True, label)
         k_ms = best(kern(kst_h), st_h, sweeps, cb=cb_h)
         p_ms = timed(plain(kst_h), st_h, sweeps, cb=cb_h)
         bound = window_bound(kst_h, chains, sweeps, True, clock_hz)
         rate_line(label, sweeps * chains * nf, k_ms, p_ms, bound)
         for name, by_site in (("thread per chain", False), ("site-parallel", True)):
-            describe_launch(torch, kst_h, chains, sweeps, True, f"{label}, {name}",
-                            sites=by_site)
+            describe_launch(torch, kst_h, chains, True, f"{label}, {name}", by_site)
             rate_line(f"{label}, {name}", sweeps * chains * nf,
-                      best(kern(kst_h, None, by_site), st_h, sweeps, cb=cb_h))
+                      best(kern(kst_h, by_site), st_h, sweeps, cb=cb_h))
         record(f"gibbs_window ({label.split(',')[0]})", replaces,
                of_phases("4c") if kst_h is hkst else of_phases("4d", "4e", "5b adaptive"),
                err, k_ms, p_ms, bound)
@@ -783,7 +762,7 @@ def main() -> int:
 
     wsites = WIDE_CHAINS * wn_free
     wlabel = f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains"
-    describe_launch(torch, wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, wlabel)
+    describe_launch(torch, wkst, WIDE_CHAINS, True, wlabel)
     wide_full_ms = best(kern(wkst), wstate0, WIDE_FULL_SWEEPS)
     rate_line(f"{wlabel}, {WIDE_FULL_SWEEPS}-sweep counted window", WIDE_FULL_SWEEPS * wsites,
               wide_full_ms, None, window_bound(wkst, WIDE_CHAINS, WIDE_FULL_SWEEPS, True, clock_hz))
@@ -798,7 +777,7 @@ def main() -> int:
     pkst, pstate0, _, pn_free = window_inputs(torch, dev, pvariants, pcaps, WIDE_CHAINS)
     plabel = (f"{WIDE_SLOTS} plain copies (oa_cap {pcaps.oa_cap}, NVp {pcaps.num_rows}) x "
               f"{WIDE_CHAINS} chains, {TIMED_SWEEPS}-sweep counted window")
-    describe_launch(torch, pkst, WIDE_CHAINS, TIMED_SWEEPS, True, plabel)
+    describe_launch(torch, pkst, WIDE_CHAINS, True, plabel)
     plain_copy_ms = best(kern(pkst), pstate0, TIMED_SWEEPS)
     rate_line(plabel, TIMED_SWEEPS * WIDE_CHAINS * pn_free, plain_copy_ms, None,
               window_bound(pkst, WIDE_CHAINS, TIMED_SWEEPS, True, clock_hz))
@@ -807,9 +786,9 @@ def main() -> int:
     small = {key: v[:2] for key, v in pkst.items()}
     for name, by_site in (("thread per chain", False), ("site-parallel", True)):
         label = f"2 plain copies x 8192 chains, {TIMED_SWEEPS}-sweep counted window, {name}"
-        describe_launch(torch, small, 8192, TIMED_SWEEPS, True, label, sites=by_site)
+        describe_launch(torch, small, 8192, True, label, by_site)
         rate_line(label, TIMED_SWEEPS * 8192 * pn_free // 4,
-                  best(kern(small, None, by_site), pstate0[:2, :, :8192].contiguous(),
+                  best(kern(small, by_site), pstate0[:2, :, :8192].contiguous(),
                        TIMED_SWEEPS, cb=hash_block(8192)))
     per_site = ((wide_full_ms / (WIDE_FULL_SWEEPS * wsites))
                 / (plain_copy_ms / (TIMED_SWEEPS * WIDE_CHAINS * pn_free)))

@@ -11,7 +11,7 @@
 // version of the same function is
 // grample_tpu_torch/ops/gibbs_torch.py::window_plain.
 //
-// What bounds it on this card: instructions issued per site, and the
+// What bounds it on this card: operations issued per site, and the
 // number of warps an SM can keep resident to hide the latency of the
 // dependent shared-memory loads between them (list word -> state word ->
 // table row).  Bytes are not the limit: a window reads its state once and
@@ -41,12 +41,13 @@
 //    at sm[w * T + t] (conflict-free).  A 916-var binary net needs 116
 //    bytes a thread where the padded byte rows needed 3128 to 4200, which
 //    is what lets 256-thread blocks and several blocks per SM be resident.
-//  - Counts: the per-site count is either a reduction without a return
-//    value into counts[N, 2, K, NSLOT, C] (atomicAdd whose result is
-//    unused compiles to RED, so the warp does not wait for device memory),
-//    or a 16-bit counter in shared memory per (site, outcome > 0) that is
-//    flushed with plain stores at the half point and at the end.  Which of
-//    the two a launch takes is the wrapper's rule (ops/gibbs_cuda.py).
+//  - Counts: the per-site count is a reduction without a return value
+//    into counts[N, 2, K, NSLOT, C] (atomicAdd whose result is unused
+//    compiles to RED, so the warp does not wait for device memory as it
+//    did for a load-add-store).  16-bit counters in shared memory, flushed
+//    at the half point and at the end, were measured beside it and were
+//    slower on every shape: they cost more resident warps than the
+//    reductions cost memory traffic (PERF.md).
 //
 //  - A launch too small to fill the card with a thread per chain (the
 //    split group's aux launches: a few variants x 256 chains) takes the
@@ -73,8 +74,6 @@ constexpr float kInv24 = 5.9604644775390625e-8f;  // 2^-24
 // c_lists header words (ops/layout.py H_*)
 constexpr int H_SITES = 0, H_ROWS = 1, H_TABLE_FLOATS = 4, H_OFF_COLOR = 5,
               H_OFF_SITES = 6, H_OFF_INCS = 7, H_OFF_SCOPE = 8, H_WORDS = 9;
-
-constexpr int COUNT_NONE = 0, COUNT_RED = 1, COUNT_SHARED = 2;
 
 struct Params {
   const int32_t* c_lists;   // [N, lw]
@@ -115,6 +114,48 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int n) {
   const auto* s = static_cast<const uint8_t*>(src);
   for (int i = threadIdx.x * 4; i < n; i += blockDim.x * 4)
     cp_async16(d + static_cast<size_t>(i) * 4, s + static_cast<size_t>(i) * 4);
+}
+
+// A variant's work lists, wherever they lie (shared or device memory).
+struct Lists {
+  const int32_t* color_end;
+  const int2* sites;   // (gi | kmask bits << 16, end index into incs)
+  const int2* incs;    // (first table row, end index into scope)
+  const uint32_t* scope;  // dense state row | stride << 16
+  const float* tabs;
+};
+
+// Start the block's copies of variant n's tables and lists into shared
+// memory (those the launch stages) and commit them; returns where the
+// lists and tables will be read from, and moves `sp` past the copies.
+// Nothing staged may be read before cp_async_wait_all() and a barrier.
+__device__ __forceinline__ void stage_variant(const Params& p, int n, uint8_t*& sp,
+                                              const int32_t*& lists, const float*& tabs) {
+  // header words come from device memory: the staged copy lands later
+  lists = p.c_lists + static_cast<size_t>(n) * p.lw;
+  tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
+  if (p.stage_tables) {
+    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
+    tabs = reinterpret_cast<const float*>(sp);
+    sp += static_cast<size_t>(p.tw) * 4;
+  }
+  if (p.stage_lists) {
+    stage(sp, lists, lists[H_WORDS]);
+    lists = reinterpret_cast<const int32_t*>(sp);
+    sp += static_cast<size_t>(p.lw) * 4;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ Lists open_lists(const int32_t* lists, const float* tabs) {
+  return {lists + lists[H_OFF_COLOR],
+          reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]),
+          reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]),
+          reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]), tabs};
 }
 
 // The inverse-CDF draw of one site from its summed logits lg[0..k), its
@@ -161,7 +202,7 @@ __device__ __forceinline__ int draw_site(float (&lg)[KMAX], uint32_t km, int k,
   return newv;
 }
 
-template <int KMAX, int COUNT>
+template <int KMAX, bool COUNT>
 __global__ void gibbs_window_kernel(const Params p) {
   // state rows are packed BITS to a row, 32 / BITS rows to a word
   constexpr int BITS = KMAX <= 2 ? 1 : KMAX <= 4 ? 2 : 4;
@@ -177,28 +218,14 @@ __global__ void gibbs_window_kernel(const Params p) {
   const int k = p.k;
   const size_t C = static_cast<size_t>(p.c_total);
 
-  // header words come from device memory: the staged copy lands later
-  const int32_t* lists = p.c_lists + static_cast<size_t>(n) * p.lw;
-  const float* tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
   const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
-  const int L = lists[H_SITES];
-  const int R = lists[H_ROWS];
-
+  const int L = p.c_lists[static_cast<size_t>(n) * p.lw + H_SITES];
+  const int R = p.c_lists[static_cast<size_t>(n) * p.lw + H_ROWS];
   uint8_t* sp = smem;
-  if (p.stage_tables) {
-    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
-    tabs = reinterpret_cast<const float*>(sp);
-    sp += static_cast<size_t>(p.tw) * 4;
-  }
-  if (p.stage_lists) {
-    stage(sp, lists, lists[H_WORDS]);
-    lists = reinterpret_cast<const int32_t*>(sp);
-    sp += static_cast<size_t>(p.lw) * 4;
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  const int32_t* lists;
+  const float* tabs;
+  stage_variant(p, n, sp, lists, tabs);
   uint32_t* sm = reinterpret_cast<uint32_t*>(sp);  // [state_words][T]
-  sp += static_cast<size_t>(p.state_words) * T * 4;
-  uint16_t* cnt = reinterpret_cast<uint16_t*>(sp);  // [L * (k - 1)][T], COUNT_SHARED
 
   int32_t* st = p.state + static_cast<size_t>(n) * p.nvp * C + c;
   if (c < p.c_total) {
@@ -212,24 +239,18 @@ __global__ void gibbs_window_kernel(const Params p) {
       }
       sm[w * T + tid] = acc;
     }
-    if (COUNT == COUNT_SHARED)
-      for (int i = 0; i < L * (k - 1); ++i) cnt[i * T + tid] = 0;
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  cp_async_wait_all();
   __syncthreads();
   if (c >= p.c_total) return;  // no barrier below
 
-  const int32_t* color_end = lists + lists[H_OFF_COLOR];
-  const int2* sites = reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]);
-  const int2* incs = reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]);
-  const uint32_t* scope = reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]);
+  const Lists ls = open_lists(lists, tabs);
 
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
                         257u * static_cast<uint32_t>(c / p.cb);
   const size_t nslot_c = static_cast<size_t>(p.nc) * p.g * C;
   int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot_c + c;
-  int since = 0;  // sweeps counted since the last flush (COUNT_SHARED)
 
   for (int si = 0; si < p.num_sweeps; ++si) {
     const int hsel = si >= p.half_point ? 1 : 0;
@@ -238,26 +259,26 @@ __global__ void gibbs_window_kernel(const Params p) {
       const uint32_t counter =
           cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(p.nc) +
                                 static_cast<uint32_t>(ci));
-      const int site_end = color_end[ci];
+      const int site_end = ls.color_end[ci];
       for (; site < site_end; ++site) {
-        const int2 sw = sites[site];
+        const int2 sw = ls.sites[site];
         const uint32_t gi = static_cast<uint32_t>(sw.x) & 0xFFFFu;
         const uint32_t km = static_cast<uint32_t>(sw.x) >> 16;
         float lg[KMAX];
 #pragma unroll
         for (int kk = 0; kk < KMAX; ++kk) lg[kk] = 0.0f;
         for (; inc < sw.y; ++inc) {
-          const int2 iw = incs[inc];
+          const int2 iw = ls.incs[inc];
           int trow = iw.x;
           // most incidences have one or two live entries: no unrolling
 #pragma unroll 1
           for (; q < iw.y; ++q) {
-            const uint32_t e = scope[q];
+            const uint32_t e = ls.scope[q];
             const uint32_t row = e & 0xFFFFu;
             const uint32_t v = (sm[(row >> RSH) * T + tid] >> ((row & RMASK) * BITS)) & VMASK;
             trow += static_cast<int>(v * (e >> 16));
           }
-          const float* t = tabs + trow * k;  // a variant's tables stay far below 2^31 floats
+          const float* t = ls.tabs + trow * k;  // a variant's tables stay far below 2^31 floats
 #pragma unroll
           for (int kk = 0; kk < KMAX; ++kk)
             if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
@@ -266,30 +287,9 @@ __global__ void gibbs_window_kernel(const Params p) {
         uint32_t* word = sm + (site >> RSH) * T + tid;
         const int sh = (site & RMASK) * BITS;
         *word = (*word & ~(VMASK << sh)) | (static_cast<uint32_t>(newv) << sh);
-        if (COUNT == COUNT_RED) {
+        if (COUNT)
           atomicAdd(cn + (static_cast<size_t>(hsel) * k + newv) * nslot_c +
                         static_cast<size_t>(ci * p.g + gi) * C, 1);
-        } else if (COUNT == COUNT_SHARED) {
-          if (newv > 0) cnt[(site * (k - 1) + newv - 1) * T + tid] += 1;
-        }
-      }
-    }
-    if (COUNT == COUNT_SHARED) {
-      ++since;
-      if (si + 1 == p.half_point || si + 1 == p.num_sweeps) {
-        for (int s = 0; s < L; ++s) {
-          int32_t* out = cn + static_cast<size_t>(hsel) * k * nslot_c +
-                         static_cast<size_t>(rows[s]) * C;
-          int rest = since;
-          for (int kk = 1; kk < k; ++kk) {
-            uint16_t* ctr = cnt + (s * (k - 1) + kk - 1) * T + tid;
-            out[kk * nslot_c] = *ctr;
-            rest -= *ctr;
-            *ctr = 0;
-          }
-          out[0] = rest;
-        }
-        since = 0;
       }
     }
   }
@@ -306,7 +306,7 @@ __global__ void gibbs_window_kernel(const Params p) {
 // byte a row here, since lanes write neighbouring rows at once; counts are
 // reductions.  blockDim.x / 32 chains share a block's staged lists.
 template <int KMAX, bool COUNT>
-__global__ void __launch_bounds__(1024) gibbs_window_sites_kernel(const Params p) {
+__global__ void __launch_bounds__(1024, 1) gibbs_window_sites_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int W = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -316,37 +316,23 @@ __global__ void __launch_bounds__(1024) gibbs_window_sites_kernel(const Params p
   const int k = p.k;
   const size_t C = static_cast<size_t>(p.c_total);
 
-  const int32_t* lists = p.c_lists + static_cast<size_t>(n) * p.lw;
-  const float* tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
   const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
-  const int L = lists[H_SITES];
-  const int R = lists[H_ROWS];
-
+  const int L = p.c_lists[static_cast<size_t>(n) * p.lw + H_SITES];
+  const int R = p.c_lists[static_cast<size_t>(n) * p.lw + H_ROWS];
   uint8_t* sp = smem;
-  if (p.stage_tables) {
-    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
-    tabs = reinterpret_cast<const float*>(sp);
-    sp += static_cast<size_t>(p.tw) * 4;
-  }
-  if (p.stage_lists) {
-    stage(sp, lists, lists[H_WORDS]);
-    lists = reinterpret_cast<const int32_t*>(sp);
-    sp += static_cast<size_t>(p.lw) * 4;
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+  const int32_t* lists;
+  const float* tabs;
+  stage_variant(p, n, sp, lists, tabs);
   uint8_t* sm = sp + static_cast<size_t>(warp) * p.rw;  // this chain's rows
 
   int32_t* st = p.state + static_cast<size_t>(n) * p.nvp * C + c;
   if (c < p.c_total)
     for (int r = lane; r < R; r += 32) sm[r] = static_cast<uint8_t>(st[rows[r] * C]);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  cp_async_wait_all();
   __syncthreads();
   if (c >= p.c_total) return;  // the whole warp leaves; only __syncwarp below
 
-  const int32_t* color_end = lists + lists[H_OFF_COLOR];
-  const int2* sites = reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]);
-  const int2* incs = reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]);
-  const uint32_t* scope = reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]);
+  const Lists ls = open_lists(lists, tabs);
 
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
@@ -361,23 +347,23 @@ __global__ void __launch_bounds__(1024) gibbs_window_sites_kernel(const Params p
       const uint32_t counter =
           cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(p.nc) +
                                 static_cast<uint32_t>(ci));
-      const int site_end = color_end[ci];
+      const int site_end = ls.color_end[ci];
       for (int site = site0 + lane; site < site_end; site += 32) {
-        const int2 sw = sites[site];
+        const int2 sw = ls.sites[site];
         const uint32_t gi = static_cast<uint32_t>(sw.x) & 0xFFFFu;
         const uint32_t km = static_cast<uint32_t>(sw.x) >> 16;
         float lg[KMAX];
 #pragma unroll
         for (int kk = 0; kk < KMAX; ++kk) lg[kk] = 0.0f;
-        for (int inc = site > 0 ? sites[site - 1].y : 0; inc < sw.y; ++inc) {
-          const int2 iw = incs[inc];
+        for (int inc = site > 0 ? ls.sites[site - 1].y : 0; inc < sw.y; ++inc) {
+          const int2 iw = ls.incs[inc];
           int trow = iw.x;
 #pragma unroll 1
-          for (int q = inc > 0 ? incs[inc - 1].y : 0; q < iw.y; ++q) {
-            const uint32_t e = scope[q];
+          for (int q = inc > 0 ? ls.incs[inc - 1].y : 0; q < iw.y; ++q) {
+            const uint32_t e = ls.scope[q];
             trow += static_cast<int>(sm[e & 0xFFFFu] * (e >> 16));
           }
-          const float* t = tabs + trow * k;
+          const float* t = ls.tabs + trow * k;
 #pragma unroll
           for (int kk = 0; kk < KMAX; ++kk)
             if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
@@ -399,46 +385,34 @@ __global__ void __launch_bounds__(1024) gibbs_window_sites_kernel(const Params p
 using Kernel = void (*)(const Params);
 
 template <int KMAX>
-Kernel pick_count(int count) {
-  switch (count) {
-    case COUNT_NONE: return gibbs_window_kernel<KMAX, COUNT_NONE>;
-    case COUNT_RED: return gibbs_window_kernel<KMAX, COUNT_RED>;
-    case COUNT_SHARED: return gibbs_window_kernel<KMAX, COUNT_SHARED>;
-    default: return nullptr;
-  }
+Kernel pick_form(bool count, bool sites) {
+  if (sites)
+    return count ? gibbs_window_sites_kernel<KMAX, true>
+                 : gibbs_window_sites_kernel<KMAX, false>;
+  return count ? gibbs_window_kernel<KMAX, true> : gibbs_window_kernel<KMAX, false>;
 }
 
-template <int KMAX>
-Kernel pick_sites(int count) {
-  switch (count) {
-    case COUNT_NONE: return gibbs_window_sites_kernel<KMAX, false>;
-    case COUNT_RED: return gibbs_window_sites_kernel<KMAX, true>;
-    default: return nullptr;
-  }
-}
-
-// The template instance for card bound k, counts form `count` and the
-// thread-per-chain (sites == 0) or site-parallel form; nullptr for a card
-// above 16 or a form that does not exist.
-Kernel pick(int k, int count, int sites) {
-  if (k <= 2) return sites ? pick_sites<2>(count) : pick_count<2>(count);
-  if (k <= 4) return sites ? pick_sites<4>(count) : pick_count<4>(count);
-  if (k <= 8) return sites ? pick_sites<8>(count) : pick_count<8>(count);
-  if (k <= 16) return sites ? pick_sites<16>(count) : pick_count<16>(count);
+// The template instance for card bound k, counted or not, in the
+// thread-per-chain or the site-parallel form; nullptr for a card above 16.
+Kernel pick(int k, bool count, bool sites) {
+  if (k <= 2) return pick_form<2>(count, sites);
+  if (k <= 4) return pick_form<4>(count, sites);
+  if (k <= 8) return pick_form<8>(count, sites);
+  if (k <= 16) return pick_form<16>(count, sites);
   return nullptr;
 }
 
 }  // namespace
 
 // Every entry point returns a cudaError_t (0 = success); 1000 = no kernel
-// for this card bound and form (the wrapper's gate refuses it first).
+// for this card bound (the wrapper's gate refuses it first).
 
 // out[0..3] = resident blocks per SM for `threads` threads and `smem` bytes
 // of dynamic shared memory, registers per thread, bytes of local memory
 // per thread (spills), and the most threads a block may have.
 extern "C" int gibbs_window_occupancy(int k, int count, int sites, int threads,
                                       int smem, void* out4) {
-  Kernel kern = pick(k, count, sites);
+  Kernel kern = pick(k, count != 0, sites != 0);
   if (kern == nullptr) return 1000;
   auto* out = static_cast<int*>(out4);
   cudaError_t err = cudaFuncSetAttribute(
@@ -464,7 +438,7 @@ extern "C" int gibbs_window_launch(
     int c, int seed, int num_sweeps, int half_point, int cb, int count, int sites,
     int stage_lists, int stage_tables, int state_words, int threads, int smem,
     void* stream) {
-  Kernel kern = pick(k, count, sites);
+  Kernel kern = pick(k, count != 0, sites != 0);
   if (kern == nullptr) return 1000;
   Params p;
   p.c_lists = static_cast<const int32_t*>(c_lists);

@@ -4,11 +4,11 @@
 and returns the same ``(state, counts)``, but only for CUDA tensors: it
 launches the kernel on the current stream or raises.
 ``gibbs_window.launches`` counts its launches, and
-``gibbs_window.launches_by_form`` the same by counts form.
+``gibbs_window.launches_by_form`` the same by kernel form.
 
 The kernel reads the compact work lists of ``ops.layout`` (``c_lists``,
 ``c_tables``, ``c_rows``), never the dense rectangles: on this card a
-window is bound by the instructions issued per site and by how many warps
+window is bound by the operations issued per site and by how many warps
 an SM keeps resident, so the launch is shaped (``plan_launch``) from the
 bytes the live work needs, not from the caps:
 
@@ -26,11 +26,12 @@ bytes the live work needs, not from the caps:
     those (more SMs at work);
   - the lists, then the tables, are staged in shared memory when they fit
     beside the state; otherwise they are read from device memory;
-  - counts: 16-bit counters in shared memory, flushed at the half point
-    and at the end (``COUNT_SHARED``), when they fit in ``SHARED_COUNT_SHARE``
-    of a block's shared memory and neither half has more than 65535
-    sweeps; otherwise one reduction without a return value per site into
-    the count tensor (``COUNT_RED``).
+  - counts are one reduction without a return value per site into the
+    zero-initialised count tensor (16-bit counters in shared memory were
+    measured beside it and were slower: they cost resident warps).
+
+Packing the state (1, 2 or 4 bits a row in the thread-per-chain form) is
+what keeps a Promedus-shaped net's 256-thread blocks at 29 KB of state.
 """
 
 from __future__ import annotations
@@ -56,11 +57,6 @@ SM_THREADS, SM_SMEM_BYTES, SM_BLOCKS = 2048, 233472, 32
 #: chains (warps) per block of the site-parallel form
 SITE_CHAINS = (4, 8, 16, 32)
 
-COUNT_NONE, COUNT_RED, COUNT_SHARED = 0, 1, 2
-#: the share of a block's shared memory the 16-bit counters may take with
-#: everything else before the launch counts by reductions instead
-SHARED_COUNT_SHARE = 0.5
-
 
 def state_bits(k: int) -> int:
     """Bits of a packed state row at card bound ``k``."""
@@ -85,16 +81,14 @@ class Plan:
     threads: int
     stage_lists: bool
     stage_tables: bool
-    counts_form: int
+    count: bool
     list_bytes: int  # the group's padded list blob
     table_bytes: int  # the group's padded compact tables
     state_bytes: int
-    counter_bytes: int
 
     @property
     def smem(self) -> int:
-        return (self.state_bytes + self.counter_bytes
-                + self.list_bytes * self.stage_lists
+        return (self.state_bytes + self.list_bytes * self.stage_lists
                 + self.table_bytes * self.stage_tables)
 
 
@@ -104,12 +98,11 @@ def _staging(fixed: int, list_bytes: int, table_bytes: int) -> tuple:
     return stage_lists, stage_lists and fixed + list_bytes + table_bytes <= MAX_SMEM_BYTES
 
 
-def plan_launch(kst: dict, c: int, count: bool, num_sweeps: int, half_point: int,
-                sm_count: int, counts_form=None, sites=None) -> Plan:
+def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Plan:
     """The launch shape the module doc's rules give for ``c`` chains of
-    each variant of ``kst``.  ``counts_form`` and ``sites`` override the
-    counts rule and the form rule (the smoke run and the tests hold each
-    form against the plain version); a form that does not fit raises."""
+    each variant of ``kst``.  ``sites`` overrides the form rule (the smoke
+    run and the tests hold each form against the plain version); a form
+    that does not fit raises."""
     n, list_bytes = kst["c_lists"].shape[0], kst["c_lists"].shape[1] * 4
     table_bytes = kst["c_tables"].shape[1] * 4
     rows, k = kst["c_rows"].shape[1], kst["k_kmask"].shape[3]
@@ -126,14 +119,11 @@ def plan_launch(kst: dict, c: int, count: bool, num_sweeps: int, half_point: int
             waves = -(-n * -(-c // w) // (resident * sm_count))
             if best is None or waves < best[0]:
                 best = (waves, w, stage)
-        if best is None:
+        if best is None:  # no narrower state exists: 32 packed chains need as much
             raise ValueError(f"{rows} state rows exceed shared memory at {SITE_CHAINS[0]} "
                              "chains per block")
-        if counts_form == COUNT_SHARED:
-            raise ValueError("the site-parallel form counts by reductions only")
         _, w, stage = best
-        return Plan(True, 32 * w, *stage, COUNT_RED if count else COUNT_NONE,
-                    list_bytes, table_bytes, w * rows, 0)
+        return Plan(True, 32 * w, *stage, count, list_bytes, table_bytes, w * rows)
     threads = next((t for t in THREAD_CHOICES if n * -(-c // t) >= sm_count),
                    THREAD_CHOICES[-1])
     while threads > 32 and state_bytes(rows, k, threads) > MAX_SMEM_BYTES:
@@ -141,21 +131,8 @@ def plan_launch(kst: dict, c: int, count: bool, num_sweeps: int, half_point: int
     sbytes = state_bytes(rows, k, threads)
     if sbytes > MAX_SMEM_BYTES:
         raise ValueError(f"{rows} state rows exceed shared memory at 32 threads")
-    stage_lists, stage_tables = _staging(sbytes, list_bytes, table_bytes)
-    staged = sbytes + list_bytes * stage_lists + table_bytes * stage_tables
-    counters = rows * (k - 1) * threads * 2  # live sites <= rows
-    fits16 = max(half_point, num_sweeps - half_point) <= 0xFFFF
-    if not count:
-        form = COUNT_NONE
-    elif counts_form is not None:
-        form = counts_form
-        if form == COUNT_SHARED and not (fits16 and staged + counters <= MAX_SMEM_BYTES):
-            raise ValueError("shared-memory counters do not fit this launch")
-    else:
-        shared = fits16 and staged + counters <= SHARED_COUNT_SHARE * MAX_SMEM_BYTES
-        form = COUNT_SHARED if shared else COUNT_RED
-    return Plan(False, threads, stage_lists, stage_tables, form, list_bytes, table_bytes,
-                sbytes, counters if form == COUNT_SHARED else 0)
+    return Plan(False, threads, *_staging(sbytes, list_bytes, table_bytes), count,
+                list_bytes, table_bytes, sbytes)
 
 
 @functools.lru_cache(maxsize=1)
@@ -176,7 +153,7 @@ def occupancy(k: int, plan: Plan) -> dict:
     thread, bytes of local memory (spills) per thread, and the most
     threads a block may have."""
     out = (ctypes.c_int * 4)()
-    err = _lib().gibbs_window_occupancy(int(k), plan.counts_form, int(plan.sites),
+    err = _lib().gibbs_window_occupancy(int(k), int(plan.count), int(plan.sites),
                                         plan.threads, plan.smem, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"gibbs_window_occupancy failed: CUDA error {err}")
@@ -184,7 +161,7 @@ def occupancy(k: int, plan: Plan) -> dict:
 
 
 def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
-                 count: bool, cb: int, counts_form=None, sites=None):
+                 count: bool, cb: int, sites=None):
     """One advance window on the card (see ``window_plain`` for the
     contract); ``kst`` is ``ops.sweep.sweep_tensors`` output, ``state`` is
     updated in place.  Padding rows are neither counted nor written."""
@@ -208,9 +185,8 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
         raise ValueError(f"max card {k} > {MAX_CARD}: not taken by the sweep kernel")
     if cb <= 0 or c <= 0 or n <= 0 or n > 65535:
         raise ValueError(f"bad window shape n={n} c={c} cb={cb}")
-    plan = plan_launch(kst, c, count, int(num_sweeps), int(half_point),
-                       torch.cuda.get_device_properties(dev).multi_processor_count,
-                       counts_form, sites)
+    plan = plan_launch(kst, c, bool(count),
+                       torch.cuda.get_device_properties(dev).multi_processor_count, sites)
     counts = (torch.zeros((n, 2, k, nc * g, c), dtype=torch.int32, device=dev)
               if count else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -221,7 +197,7 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
             counts.data_ptr() if count else None,
             n, kst["c_lists"].shape[1], kst["c_tables"].shape[1],
             kst["c_rows"].shape[1], nc, g, k, nvp, c, _as_int32(seed),
-            int(num_sweeps), int(half_point), int(cb), plan.counts_form,
+            int(num_sweeps), int(half_point), int(cb), int(plan.count),
             int(plan.sites), int(plan.stage_lists), int(plan.stage_tables),
             state_words(kst["c_rows"].shape[1], k), plan.threads, plan.smem, stream)
     if err != 0:
@@ -240,7 +216,7 @@ gibbs_window.launches_by_form = {}
 def form_name(plan: Plan) -> str:
     """The kernel form a plan launches, as ``launches_by_form`` keys it."""
     return (("site-parallel" if plan.sites else "thread per chain") + ", "
-            + ("uncounted", "reductions", "shared counters")[plan.counts_form])
+            + ("counted" if plan.count else "uncounted"))
 
 
 def _as_int32(x: int) -> int:

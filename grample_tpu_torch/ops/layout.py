@@ -77,12 +77,19 @@ MAX_DENSE_ROWS = 1 << 16
 MAX_STRIDE = 1 << 15
 
 
-def kernel_perm(local_tables: np.ndarray) -> np.ndarray:
+def real_incidences(local_tables: np.ndarray) -> np.ndarray:
+    """[NC, G, F] bool: the incidences whose local table is not
+    identically zero.  An all-zero table adds nothing to any conditional."""
+    return np.abs(local_tables).max(axis=(3, 4)) > 0
+
+
+def kernel_perm(local_tables: np.ndarray, real=None) -> np.ndarray:
     """[NC, G] per-color stable descending-degree order of one variant
-    (reference ``gibbs_pallas.py:137-140``).  An incidence whose local
-    table is identically zero adds nothing to any conditional and does
-    not count toward the degree."""
-    real = np.abs(local_tables).max(axis=(3, 4)) > 0  # [NC, G, F]
+    (reference ``gibbs_pallas.py:137-140``); only real incidences
+    (``real_incidences``, computed here unless given) count toward the
+    degree."""
+    if real is None:
+        real = real_incidences(local_tables)
     return np.argsort(-real.sum(axis=2), axis=1, kind="stable")
 
 
@@ -93,9 +100,12 @@ def kernel_stack(stack: dict) -> dict:
     nslot = nc * G
     out = {k: [] for k in ("k_scope", "k_strides", "k_tables", "k_kmask",
                            "pal_oon", "pal_noo", "pal_soo")}
+    reals = []
     ci_idx = np.arange(nc)[:, None]  # pairs with perm [NC, G]
     for i in range(n):
-        perm = kernel_perm(stack["sw_local_tables"][i])
+        real = real_incidences(stack["sw_local_tables"][i])
+        perm = kernel_perm(stack["sw_local_tables"][i], real)
+        reals.append(real[ci_idx, perm])
         shared_of_pal = np.arange(nvp, dtype=np.int32)
         shared_of_pal[:nslot] = (ci_idx * G + perm).reshape(-1)
         pal_of_shared = np.empty_like(shared_of_pal)
@@ -112,20 +122,24 @@ def kernel_stack(stack: dict) -> dict:
             np.where(soo < nslot, pal_of_shared[np.minimum(soo, nvp - 1)],
                      nslot))
     dtypes = {"k_tables": np.float32, "k_kmask": np.uint8}
-    dense = {k: np.stack(v).astype(dtypes.get(k, np.int32)) for k, v in out.items()}
-    return {**dense, **compact_stack(dense, stack["cards"])}
+    dense = {k: np.stack(v).astype(dtypes.get(k, np.int32), copy=False)
+             for k, v in out.items()}
+    return {**dense, **compact_stack(dense, stack["cards"], reals)}
 
 
-def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards) -> dict:
+def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None) -> dict:
     """Compact work lists of one variant from its dense kernel-order
-    arrays (no leading axis) and the card of every kernel row
-    ``row_cards`` [NVp]; unpadded.  See the module doc for the format."""
+    arrays (no leading axis), the card of every kernel row ``row_cards``
+    [NVp] and, where the caller has them, the real incidences of
+    ``k_tables``; unpadded.  See the module doc for the format."""
     nc, G, F, S = k_scope.shape
     oa, K = k_tables.shape[3:]
     if G > MAX_DENSE_ROWS or K > 16:
         raise ValueError(f"group of {G} rows at card {K} does not fit a site word")
     live_site = k_kmask.astype(bool).any(axis=2)  # [NC, G]
-    live_inc = (np.abs(k_tables).max(axis=(3, 4)) > 0) & live_site[..., None]
+    if real is None:
+        real = real_incidences(k_tables)
+    live_inc = real & live_site[..., None]
     ci, gi = np.nonzero(live_site)  # colour-major, kernel order
     inc_of_site = live_inc[live_site]  # [L, F]
     scope = k_scope[live_site][inc_of_site]  # [I, S] kernel rows
@@ -179,13 +193,15 @@ def compact_capacity(key: str, need: int) -> int:
     return max(m, -(-int(need) // m) * m)
 
 
-def compact_stack(dense: dict, cards: np.ndarray) -> dict:
+def compact_stack(dense: dict, cards: np.ndarray, reals=None) -> dict:
     """Compact work lists of every variant of ``kernel_stack``'s dense
-    output (``cards`` [N, V+1] by old var id), zero-padded to one
-    capacity per tensor and stacked."""
+    output (``cards`` [N, V+1] by old var id; ``reals``: each variant's
+    real incidences in kernel order, where the caller has them),
+    zero-padded to one capacity per tensor and stacked."""
     per = [compact_variant(dense["k_scope"][i], dense["k_strides"][i],
                            dense["k_tables"][i], dense["k_kmask"][i],
-                           np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64))
+                           np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64),
+                           None if reals is None else reals[i])
            for i in range(dense["k_scope"].shape[0])]
     out = {}
     for key in COMPACT_KEYS:

@@ -11,7 +11,7 @@ its plain PyTorch version (``ops.gibbs_torch``) for CPU tensors; a CUDA
 tensor never takes the plain path.  ``sweep_tensors`` carries both
 inputs: the dense kernel-order rectangles that the plain version reads,
 and the compact work lists (``ops.layout``) that the kernel walks, since
-on the card a window is bound by the instructions and shared-memory
+on the card a window is bound by the operations and shared-memory
 loads it issues per slot visited, and most slots of the rectangles are
 padding.  ``check_supported`` is the gate: the sweep takes the dense
 local-table bank only, local tables of at most ``OA_MAX`` rows, cards up

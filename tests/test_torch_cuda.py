@@ -48,13 +48,11 @@ def _long_chain(v=2000):
 
 def _kernel_vs_plain(encs, device, c, count=True):
     """One window of 3 sweeps (half point 1) through the plain version and
-    through every form of the kernel that fits the launch (the form the
-    wrapper's rule picks; counted, also each counts form by name), from
-    the same state (thread per chain and site-parallel, each counts form):
-    at most 0.1 % of sites differ after it, tail rows
-    stay, and (counted) counts agree wherever the states agree, each
-    half's total is chains x sweeps x live rows, and padding rows count
-    nothing.  Returns the forms run."""
+    through every form of the kernel (the form the wrapper's rule picks,
+    thread per chain, site-parallel), from the same state: at most 0.1 %
+    of sites differ after it, tail rows stay, and (counted) counts agree
+    wherever the states agree, each half's total is chains x sweeps x live
+    rows, and padding rows count nothing."""
     kst = sweep.sweep_tensors(port_encode.stack_variants(encs), device)
     args = [kst[k] for k in sweep.KERNEL_KEYS]
     n, caps = len(encs), encs[0].caps
@@ -65,19 +63,9 @@ def _kernel_vs_plain(encs, device, c, count=True):
     state = torch.as_tensor(init.astype(np.int32), device=device)
     sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
     live = kst["k_kmask"].bool().any(dim=3).reshape(n, nslot)
-    # (counts form, site-parallel): the rule's pick, then each form by name
-    forms = [(None, None), (None, False), (None, True)]
-    if count:
-        forms.append((gibbs_cuda.COUNT_RED, False))
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        try:
-            gibbs_cuda.plan_launch(kst, c, True, 3, 1, sms, gibbs_cuda.COUNT_SHARED, False)
-            forms.append((gibbs_cuda.COUNT_SHARED, False))
-        except ValueError:
-            pass
-    for form in forms:
+    for form in (None, False, True):  # the rule's pick, thread per chain, site-parallel
         before = gibbs_cuda.gibbs_window.launches
-        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, *form)
+        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, form)
         torch.cuda.synchronize()
         assert gibbs_cuda.gibbs_window.launches == before + 1
         assert (sk[:, :nslot] != sp[:, :nslot]).float().mean().item() <= 1e-3, form
@@ -91,7 +79,6 @@ def _kernel_vs_plain(encs, device, c, count=True):
             want = c * sweeps * int(live.sum())
             assert ck[:, half].sum().item() == cp[:, half].sum().item() == want, form
         assert ck.sum(dim=(1, 2, 4))[~live].sum().item() == 0
-    return forms
 
 
 def test_long_lists_stay_in_device_memory(cuda_device):
@@ -100,7 +87,7 @@ def test_long_lists_stay_in_device_memory(cuda_device):
     enc_m = _long_chain(20000)
     enc = port_encode.encode_model(enc_m, port_encode.compute_caps(enc_m, headroom_factors=0))
     kst = sweep.sweep_tensors(port_encode.stack_variants([enc]), "cpu")
-    plan = gibbs_cuda.plan_launch(kst, 8192, True, 3, 1, 132)
+    plan = gibbs_cuda.plan_launch(kst, 8192, True, 132)
     assert not plan.stage_lists and not plan.stage_tables
     _kernel_vs_plain([enc, enc], cuda_device, 8192)
 
@@ -109,8 +96,7 @@ def test_long_lists_stay_in_device_memory(cuda_device):
 def test_kernel_matches_plain_on_card(cuda_device, name):
     m = _long_chain() if name == "long_chain" else torch_models.build(port_pgm, name)
     enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
-    forms = _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096)
-    assert ((gibbs_cuda.COUNT_SHARED, False) in forms) == (name != "long_chain")
+    _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096)
 
 
 def _wide_encs(name):

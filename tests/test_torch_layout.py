@@ -281,46 +281,48 @@ def _shapes(n, rows, k, lists, tables):
 
 
 @pytest.mark.parametrize("case,want", [
-    # the 10x10 grid, 2 x 131072 chains: wide blocks, all staged, shared counters
-    ("grid", (256, True, True, gibbs_cuda.COUNT_SHARED)),
-    # 8 aux variants x 256 chains: site-parallel, 16 chains a block (one wave)
-    ("aux", (512, True, True, gibbs_cuda.COUNT_RED)),
-    # counters that would take most of shared memory: reductions
-    ("promedus", (256, True, True, gibbs_cuda.COUNT_RED)),
-    # a half of more than 65535 sweeps does not fit 16-bit counters
-    ("long_window", (256, True, True, gibbs_cuda.COUNT_RED)),
+    # the 10x10 grid, 2 x 131072 chains: a thread per chain, wide blocks, all staged
+    ("grid", (False, 256, True, True)),
+    # 8 aux variants x 256 chains: a warp per chain would not fill the card's
+    # thread slots, so site-parallel; 16 chains a block run in one wave
+    ("aux", (True, 512, True, True)),
+    # 12 aux variants: 32 chains a block still run in one wave, 16 would not
+    ("aux12", (True, 1024, True, True)),
+    ("promedus", (False, 256, True, True)),
+    # 2 x 8192 chains cannot give every SM a 128-thread block
+    ("main_5b", (False, 64, True, True)),
     # lists too long for shared memory stay in device memory, tables with them
-    ("long_lists", (256, False, False, gibbs_cuda.COUNT_RED)),
-    ("big_tables", (256, True, False, gibbs_cuda.COUNT_RED)),
+    ("long_lists", (False, 256, False, False)),
+    ("big_tables", (False, 256, True, False)),
     # a packed state too large for 256 threads halves the block
-    ("many_rows", (64, False, False, gibbs_cuda.COUNT_RED)),
-    ("uncounted", (256, True, True, gibbs_cuda.COUNT_NONE)),
+    ("many_rows", (False, 64, False, False)),
 ])
 def test_plan_launch_rules(case, want):
-    kst, c, sweeps, count = {
-        "grid": (_shapes(2, 128, 2, 2048, 2048), 131072, 256, True),
-        "aux": (_shapes(8, 928, 2, 8192, 32768), 256, 64, True),
-        "promedus": (_shapes(8, 928, 2, 8192, 8192), 16384, 256, True),
-        "long_window": (_shapes(2, 128, 2, 2048, 2048), 131072, 200000, True),
-        "long_lists": (_shapes(2, 4096, 2, 70000, 4096), 131072, 256, True),
-        "big_tables": (_shapes(2, 512, 2, 4096, 60000), 131072, 256, True),
-        "many_rows": (_shapes(2, 24000, 2, 400000, 4096), 131072, 256, True),
-        "uncounted": (_shapes(2, 128, 2, 2048, 2048), 131072, 256, False),
+    kst, c = {
+        "grid": (_shapes(2, 128, 2, 2048, 2048), 131072),
+        "aux": (_shapes(8, 928, 2, 8192, 32768), 256),
+        "aux12": (_shapes(12, 928, 2, 8192, 32768), 256),
+        "promedus": (_shapes(8, 928, 2, 8192, 8192), 16384),
+        "main_5b": (_shapes(2, 928, 2, 8192, 10240), 8192),
+        "long_lists": (_shapes(2, 4096, 2, 70000, 4096), 131072),
+        "big_tables": (_shapes(2, 512, 2, 4096, 60000), 131072),
+        "many_rows": (_shapes(2, 24000, 2, 400000, 4096), 131072),
     }[case]
-    plan = gibbs_cuda.plan_launch(kst, c, count, sweeps, sweeps // 2, sm_count=132)
-    assert (plan.threads, plan.stage_lists, plan.stage_tables, plan.counts_form) == want
-    assert plan.smem <= gibbs_cuda.MAX_SMEM_BYTES
-    assert plan.sites == (case == "aux")
-    if not plan.sites:
-        assert plan.state_bytes == gibbs_cuda.state_bytes(kst["c_rows"].shape[1], 2,
-                                                          plan.threads)
+    for count in (True, False):
+        plan = gibbs_cuda.plan_launch(kst, c, count, sm_count=132)
+        assert (plan.sites, plan.threads, plan.stage_lists, plan.stage_tables) == want
+        assert plan.count == count and plan.smem <= gibbs_cuda.MAX_SMEM_BYTES
+        rows = kst["c_rows"].shape[1]
+        assert plan.state_bytes == (plan.threads // 32 * rows if plan.sites else
+                                    gibbs_cuda.state_bytes(rows, 2, plan.threads))
+    # either form can be asked for by name
+    assert gibbs_cuda.plan_launch(kst, c, True, 132, sites=not want[0]).sites != want[0]
 
 
 def test_plan_launch_refuses_what_does_not_fit():
-    with pytest.raises(ValueError, match="exceed shared memory"):
-        gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), 64, True, 8, 4, 132)
-    with pytest.raises(ValueError, match="counters do not fit"):
-        gibbs_cuda.plan_launch(_shapes(8, 928, 2, 8192, 8192), 16384, True, 8, 4, 132,
-                               counts_form=gibbs_cuda.COUNT_SHARED)
+    with pytest.raises(ValueError, match="exceed shared memory at 32 threads"):
+        gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), 65536, True, 132)
+    with pytest.raises(ValueError, match="exceed shared memory at 4 chains"):
+        gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), 64, True, 132)
     assert [gibbs_cuda.state_bits(k) for k in (2, 3, 4, 5, 16)] == [1, 2, 2, 4, 4]
     assert gibbs_cuda.state_words(916, 2) == 29 and gibbs_cuda.state_words(100, 3) == 7
