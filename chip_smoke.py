@@ -265,6 +265,17 @@ KERNEL_FORMS = (
     ("site-parallel", True, True), ("site-parallel, uncounted", False, True))
 
 
+def form_plan(torch, kst, chains, count, sites):
+    """The launch plan of the named kernel form (``sites`` True or False),
+    or None for the wrapper's own pick."""
+    from grample_tpu_torch.ops import gibbs_cuda
+
+    if sites is None:
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
+
+
 def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label):
     """One sweep through every form of the kernel and through the plain
     version from the same state; returns {form label: largest state
@@ -281,7 +292,8 @@ def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, lab
         if count not in plain_out:
             plain_out[count] = window_plain(*args, state0.clone(), SEED, 1, 0, count, cb)
         sp, cp = plain_out[count]
-        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb, by_site)
+        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb,
+                                         form_plan(torch, kst, chains, count, by_site))
         torch.cuda.synchronize()
         diff = (sk[:, :nslot] != sp[:, :nslot]) & free[:, :, None]
         frac = diff.sum().item() / (free.sum().item() * chains)
@@ -677,7 +689,9 @@ def main() -> int:
         return e0.elapsed_time(e1)
 
     def kern(kst_, sites=None):
-        return lambda *a: gibbs_cuda.gibbs_window(kst_, *a, sites)
+        return lambda st, seed, sweeps, half, count, cb_: gibbs_cuda.gibbs_window(
+            kst_, st, seed, sweeps, half, count, cb_,
+            form_plan(torch, kst_, st.shape[2], count, sites))
 
     def plain(kst_):
         return lambda *a: window_plain(*[kst_[k] for k in KERNEL_KEYS], *a)
@@ -781,15 +795,17 @@ def main() -> int:
     plain_copy_ms = best(kern(pkst), pstate0, TIMED_SWEEPS)
     rate_line(plabel, TIMED_SWEEPS * WIDE_CHAINS * pn_free, plain_copy_ms, None,
               window_bound(pkst, WIDE_CHAINS, TIMED_SWEEPS, True, clock_hz))
-    # the shape of the 5b runs' main group (2 x 8192 chains), in both forms:
-    # where the form rule's threshold lies
-    small = {key: v[:2] for key, v in pkst.items()}
-    for name, by_site in (("thread per chain", False), ("site-parallel", True)):
-        label = f"2 plain copies x 8192 chains, {TIMED_SWEEPS}-sweep counted window, {name}"
-        describe_launch(torch, small, 8192, True, label, by_site)
-        rate_line(label, TIMED_SWEEPS * 8192 * pn_free // 4,
-                  best(kern(small, by_site), pstate0[:2, :, :8192].contiguous(),
-                       TIMED_SWEEPS, cb=hash_block(8192)))
+    # the shape of the 5b runs' main group (2 x 8192 chains) and twice that, in
+    # both forms: the form rule's threshold lies where they tie
+    for copies in (2, 4):
+        small = {key: v[:copies] for key, v in pkst.items()}
+        st_small = pstate0[:copies, :, :8192].contiguous()
+        for name, by_site in (("thread per chain", False), ("site-parallel", True)):
+            label = (f"{copies} plain copies x 8192 chains, {TIMED_SWEEPS}-sweep counted "
+                     f"window, {name}")
+            describe_launch(torch, small, 8192, True, label, by_site)
+            rate_line(label, TIMED_SWEEPS * 8192 * pn_free * copies // WIDE_SLOTS,
+                      best(kern(small, by_site), st_small, TIMED_SWEEPS, cb=hash_block(8192)))
     per_site = ((wide_full_ms / (WIDE_FULL_SWEEPS * wsites))
                 / (plain_copy_ms / (TIMED_SWEEPS * WIDE_CHAINS * pn_free)))
     print(f"timing: collapse variants / plain copies, time per counted site: {per_site:.3f}",

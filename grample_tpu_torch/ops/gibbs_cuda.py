@@ -12,20 +12,24 @@ window is bound by the operations issued per site and by how many warps
 an SM keeps resident, so the launch is shaped (``plan_launch``) from the
 bytes the live work needs, not from the caps:
 
-  - form: one thread per (variant, chain), unless even one warp per
-    chain would not oversubscribe the card (``32 * N * C`` within its
-    resident-thread slots, as the split group's aux launches are): then
-    the site-parallel form, a warp per chain whose lanes take the live
-    sites of a colour side by side;
-  - block width, thread per chain: the widest of ``THREAD_CHOICES`` that
-    still gives every SM a block (a launch too small for that takes
-    32-thread blocks, to spread over as many SMs as it can), halved until
-    the packed state of a block fits shared memory;
-  - block width, site-parallel: the chains per block of ``SITE_CHAINS``
-    that need the fewest waves of resident blocks, the narrowest of
-    those (more SMs at work);
+  - form: one thread per (variant, chain), unless that would give an SM
+    fewer than ``SITE_FORM_WARPS`` warps (``N * C`` below 33792 on 132
+    SMs, as the split group's aux launches and an engine run of 2 x 8192
+    chains are): then the site-parallel form, a warp per chain whose
+    lanes take the live sites of a colour side by side.  Measured on a
+    916-var net, the two forms tie at 32768 chains; at 16384 the
+    site-parallel form is 2x faster, at 2048 14x, at 65536 1.5x slower;
   - the lists, then the tables, are staged in shared memory when they fit
-    beside the state; otherwise they are read from device memory;
+    beside a block's state; otherwise they are read from device memory;
+  - block width (``THREAD_CHOICES``; ``SITE_CHAINS`` warps in the
+    site-parallel form): the one that keeps the most warps resident on
+    the card at once, counting its shared memory; among equals the one
+    that puts blocks on the most SMs, then the widest (fewer copies of
+    the lists per SM, and whole waves of blocks).  On full-card launches
+    that is 1024 threads with the lists staged once per SM: measured, the
+    Promedus-shaped collapse variants run 1.7x faster so than in
+    256-thread blocks, and faster than with nothing staged and six times
+    the resident warps;
   - counts are one reduction without a return value per site into the
     zero-initialised count tensor (16-bit counters in shared memory were
     measured beside it and were slower: they cost resident warps).
@@ -47,7 +51,7 @@ from grample_tpu_torch.ops.layout import COMPACT_KEYS, MAX_DENSE_ROWS
 
 #: H100 gives one block at most 227 KB of shared memory
 MAX_SMEM_BYTES = 232448
-THREAD_CHOICES = (256, 128, 64, 32)
+THREAD_CHOICES = (1024, 512, 256, 128, 64, 32)
 MAX_CARD = 16
 #: a scope word of the compact lists holds a state row in 16 bits
 MAX_ROWS = MAX_DENSE_ROWS
@@ -56,6 +60,9 @@ MAX_ROWS = MAX_DENSE_ROWS
 SM_THREADS, SM_SMEM_BYTES, SM_BLOCKS = 2048, 233472, 32
 #: chains (warps) per block of the site-parallel form
 SITE_CHAINS = (4, 8, 16, 32)
+#: warps per SM below which a thread per chain leaves the card idle and
+#: the site-parallel form takes the launch
+SITE_FORM_WARPS = 8
 
 
 def state_bits(k: int) -> int:
@@ -107,32 +114,24 @@ def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Pl
     table_bytes = kst["c_tables"].shape[1] * 4
     rows, k = kst["c_rows"].shape[1], kst["k_kmask"].shape[3]
     if sites is None:
-        sites = 32 * n * c <= sm_count * SM_THREADS
-    if sites:
-        best = None
-        for w in SITE_CHAINS:
-            stage = _staging(w * rows, list_bytes, table_bytes)
-            smem = w * rows + list_bytes * stage[0] + table_bytes * stage[1]
-            resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // (32 * w), SM_BLOCKS)
-            if smem > MAX_SMEM_BYTES or resident < 1:
-                continue
-            waves = -(-n * -(-c // w) // (resident * sm_count))
-            if best is None or waves < best[0]:
-                best = (waves, w, stage)
-        if best is None:  # no narrower state exists: 32 packed chains need as much
-            raise ValueError(f"{rows} state rows exceed shared memory at {SITE_CHAINS[0]} "
-                             "chains per block")
-        _, w, stage = best
-        return Plan(True, 32 * w, *stage, count, list_bytes, table_bytes, w * rows)
-    threads = next((t for t in THREAD_CHOICES if n * -(-c // t) >= sm_count),
-                   THREAD_CHOICES[-1])
-    while threads > 32 and state_bytes(rows, k, threads) > MAX_SMEM_BYTES:
-        threads //= 2
-    sbytes = state_bytes(rows, k, threads)
-    if sbytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{rows} state rows exceed shared memory at 32 threads")
-    return Plan(False, threads, *_staging(sbytes, list_bytes, table_bytes), count,
-                list_bytes, table_bytes, sbytes)
+        sites = n * c <= sm_count * SITE_FORM_WARPS * 32
+    best = None
+    for threads in ([32 * w for w in SITE_CHAINS] if sites else THREAD_CHOICES):
+        chains = threads // 32 if sites else threads  # per block
+        sbytes = chains * rows if sites else state_bytes(rows, k, threads)
+        stage = _staging(sbytes, list_bytes, table_bytes)
+        smem = sbytes + list_bytes * stage[0] + table_bytes * stage[1]
+        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads, SM_BLOCKS)
+        if smem > MAX_SMEM_BYTES or resident < 1:
+            continue
+        blocks = n * -(-c // chains)
+        key = (min(blocks, resident * sm_count) * (threads // 32), min(blocks, sm_count),
+               threads)
+        if best is None or key > best[0]:
+            best = (key, Plan(sites, threads, *stage, count, list_bytes, table_bytes, sbytes))
+    if best is None:
+        raise ValueError(f"{rows} state rows exceed a block's shared memory")
+    return best[1]
 
 
 @functools.lru_cache(maxsize=1)
@@ -161,10 +160,12 @@ def occupancy(k: int, plan: Plan) -> dict:
 
 
 def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
-                 count: bool, cb: int, sites=None):
+                 count: bool, cb: int, plan=None):
     """One advance window on the card (see ``window_plain`` for the
     contract); ``kst`` is ``ops.sweep.sweep_tensors`` output, ``state`` is
-    updated in place.  Padding rows are neither counted nor written."""
+    updated in place.  Padding rows are neither counted nor written.
+    ``plan`` replaces the launch shape ``plan_launch`` would give (the
+    smoke run, the tests and ``launch_shapes.py`` compare shapes)."""
     n, nc, g, k = kst["k_kmask"].shape
     if tuple(state.shape[:1]) != (n,) or state.dim() != 3:
         raise ValueError(f"state {tuple(state.shape)} does not stack {n} variants")
@@ -185,8 +186,14 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
         raise ValueError(f"max card {k} > {MAX_CARD}: not taken by the sweep kernel")
     if cb <= 0 or c <= 0 or n <= 0 or n > 65535:
         raise ValueError(f"bad window shape n={n} c={c} cb={cb}")
-    plan = plan_launch(kst, c, bool(count),
-                       torch.cuda.get_device_properties(dev).multi_processor_count, sites)
+    if plan is None:
+        plan = plan_launch(kst, c, bool(count),
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    if (plan.count != bool(count) or plan.smem > MAX_SMEM_BYTES or plan.threads % 32
+            or not 32 <= plan.threads <= 1024
+            or plan.state_bytes < (plan.threads // 32 * kst["c_rows"].shape[1] if plan.sites
+                                   else state_bytes(kst["c_rows"].shape[1], k, plan.threads))):
+        raise ValueError(f"launch plan does not fit this window: {plan}")
     counts = (torch.zeros((n, 2, k, nc * g, c), dtype=torch.int32, device=dev)
               if count else None)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -63,9 +63,11 @@ def _kernel_vs_plain(encs, device, c, count=True):
     state = torch.as_tensor(init.astype(np.int32), device=device)
     sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
     live = kst["k_kmask"].bool().any(dim=3).reshape(n, nslot)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for form in (None, False, True):  # the rule's pick, thread per chain, site-parallel
+        plan = None if form is None else gibbs_cuda.plan_launch(kst, c, count, sms, form)
         before = gibbs_cuda.gibbs_window.launches
-        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, form)
+        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, plan)
         torch.cuda.synchronize()
         assert gibbs_cuda.gibbs_window.launches == before + 1
         assert (sk[:, :nslot] != sp[:, :nslot]).float().mean().item() <= 1e-3, form

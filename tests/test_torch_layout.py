@@ -281,31 +281,39 @@ def _shapes(n, rows, k, lists, tables):
 
 
 @pytest.mark.parametrize("case,want", [
-    # the 10x10 grid, 2 x 131072 chains: a thread per chain, wide blocks, all staged
-    ("grid", (False, 256, True, True)),
-    # 8 aux variants x 256 chains: a warp per chain would not fill the card's
-    # thread slots, so site-parallel; 16 chains a block run in one wave
-    ("aux", (True, 512, True, True)),
-    # 12 aux variants: 32 chains a block still run in one wave, 16 would not
-    ("aux12", (True, 1024, True, True)),
-    ("promedus", (False, 256, True, True)),
-    # 2 x 8192 chains cannot give every SM a 128-thread block
-    ("main_5b", (False, 64, True, True)),
-    # lists too long for shared memory stay in device memory, tables with them
-    ("long_lists", (False, 256, False, False)),
-    ("big_tables", (False, 256, True, False)),
-    # a packed state too large for 256 threads halves the block
+    # the 10x10 grid, 2 x 131072 chains: 256, 512 and 1024 threads all keep
+    # 64 warps an SM resident; the widest wins
+    ("grid", (False, 1024, True, True)),
+    # 8 aux variants x 256 chains: a thread per chain would leave most SMs
+    # idle, so site-parallel; 8 chains a block put blocks on every SM
+    ("aux", (True, 256, True, True)),
+    # 12 aux variants: 8 chains a block would leave a third of them waiting
+    ("aux12", (True, 512, True, True)),
+    # full-card launches on a Promedus-shaped net: one 1024-thread block per
+    # SM, lists and tables staged once
+    ("promedus", (False, 1024, True, True)),
+    # 2 x 8192 chains are 4 warps an SM as threads: site-parallel, 32 chains
+    # a block keep the most warps resident
+    ("main_5b", (True, 1024, True, True)),
+    # 8 x 8192 chains fill the card as threads
+    ("main_8", (False, 256, True, True)),
+    # lists too long for shared memory stay in device memory, tables with
+    # them; the state alone lets narrower blocks keep more warps resident
+    ("long_lists", (False, 128, False, False)),
+    ("big_tables", (False, 1024, True, False)),
+    # a packed state too large for wide blocks narrows them
     ("many_rows", (False, 64, False, False)),
 ])
 def test_plan_launch_rules(case, want):
     kst, c = {
         "grid": (_shapes(2, 128, 2, 2048, 2048), 131072),
-        "aux": (_shapes(8, 928, 2, 8192, 32768), 256),
-        "aux12": (_shapes(12, 928, 2, 8192, 32768), 256),
-        "promedus": (_shapes(8, 928, 2, 8192, 8192), 16384),
+        "aux": (_shapes(8, 928, 2, 8192, 10240), 256),
+        "aux12": (_shapes(12, 928, 2, 8192, 10240), 256),
+        "promedus": (_shapes(8, 928, 2, 8192, 14336), 16384),
         "main_5b": (_shapes(2, 928, 2, 8192, 10240), 8192),
-        "long_lists": (_shapes(2, 4096, 2, 70000, 4096), 131072),
-        "big_tables": (_shapes(2, 512, 2, 4096, 60000), 131072),
+        "main_8": (_shapes(8, 928, 2, 8192, 10240), 8192),
+        "long_lists": (_shapes(2, 1024, 2, 70000, 4096), 131072),
+        "big_tables": (_shapes(2, 512, 2, 4096, 50000), 131072),
         "many_rows": (_shapes(2, 24000, 2, 400000, 4096), 131072),
     }[case]
     for count in (True, False):
@@ -320,9 +328,8 @@ def test_plan_launch_rules(case, want):
 
 
 def test_plan_launch_refuses_what_does_not_fit():
-    with pytest.raises(ValueError, match="exceed shared memory at 32 threads"):
-        gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), 65536, True, 132)
-    with pytest.raises(ValueError, match="exceed shared memory at 4 chains"):
-        gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), 64, True, 132)
+    for chains in (65536, 64):  # thread per chain, site-parallel
+        with pytest.raises(ValueError, match="exceed a block's shared memory"):
+            gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), chains, True, 132)
     assert [gibbs_cuda.state_bits(k) for k in (2, 3, 4, 5, 16)] == [1, 2, 2, 4, 4]
     assert gibbs_cuda.state_words(916, 2) == 29 and gibbs_cuda.state_words(100, 3) == 7
