@@ -52,7 +52,7 @@ A row is live when its ``k_kmask`` has any bit; an incidence when its
 site is live and its table is not identically zero (adding an all-zero
 row changes no sum: ``x + 0.0f == x``); a scope entry when its incidence
 is live and its stride is positive.  ``LW``, ``TW`` and ``RW`` are the
-largest need among the stacked variants, rounded up (``pad_compact``), so
+largest need among the stacked variants, rounded up (``compact_capacity``), so
 a group's tensors keep one shape while variants come and go.
 """
 
