@@ -13,8 +13,9 @@ non-zero:
      binary grid (100 vars, 280 factors, 3 evidence vars), 2 variants x
      131072 chains, the same seed and hash width, one sweep: every form
      the kernel has (thread per chain and site-parallel, each counted and
-     uncounted, and whichever the wrapper's rule picks).  At most 0.1 % of free sites may differ (a draw that
-     sits on a CDF boundary can flip with expf's last bit); count totals
+     uncounted, and whichever the wrapper's rule picks).  At most 0.1 %
+     of free sites may differ (a draw that sits on a CDF boundary can
+     flip with expf's last bit); count totals
      on free rows must equal sweeps x chains x free vars exactly and be 0
      elsewhere; evidence rows must stay;
   3b. the same for the kernel's wide-table form: 8 collapse variants of a
@@ -56,8 +57,10 @@ non-zero:
      window on 8 plain copies of the net; for every row its live work
      (sites, incidences, scope entries, table bytes per variant), the
      launch's threads, staging, shared-memory bytes, registers, spills
-     and resident blocks per SM, and its bound (``bound_ms``); and an
-     engine run
+     and resident blocks per SM, its bound (``bound_ms``: bytes moved
+     once, or the arithmetic of its live work, ``window_bound``); the
+     grid at card 8 and the Promedus-shaped windows again at other block
+     widths and stagings than the wrapper's rule picks; and an engine run
      ``-s collapsed -c 8 --vchains 16384`` on that net, about 10 s of
      sampling, with its counted site-samples/s and peak device memory;
   5b. the adaptive engine on the Promedus-shaped net (the reference's
@@ -77,6 +80,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -91,6 +95,8 @@ import numpy as np
 SEED = 1234
 GRID_CHAINS = 131072  # per variant; 2 variants = 262144 chains
 TIMED_SWEEPS = 256
+#: counted sweeps of the timed windows on the 10x10 grid at card 8
+K8_SWEEPS = 64
 MAX_MISMATCH = 1e-3
 #: collapse variants x chains per variant of the wide-table phases
 WIDE_SLOTS, WIDE_CHAINS = 8, 16384
@@ -99,7 +105,7 @@ WIDE_SLOTS, WIDE_CHAINS = 8, 16384
 #: H100 80GB HBM3 at 700.00 W)
 WIDE_PAIR_SWEEPS = 8
 #: counted sweeps of the longer kernel-only window on the collapse
-#: variants (about 10 s on an NVIDIA H100 80GB HBM3 at 700.00 W, see PERF.md)
+#: variants
 WIDE_FULL_SWEEPS = 32
 #: chains per variant of the headroom-encoding comparison on the grid
 HEADROOM_CHAINS = 32768
@@ -117,32 +123,24 @@ ADAPT_SECS = 30
 #: lanes); the clock is the card's ``clocks.max.sm``
 PEAK_BYTES_PER_S = 3.35e12
 LANES = 132 * 128
-#: thread operations of the thread-per-chain kernel's loops, counted in the
-#: SASS of its binary-card counted instance (``cuobjdump -sass`` of the
-#: built library): the site loop's body without its incidence loop (list
-#: words, mask, two expf, floor, hash, inverse CDF, packed write, count),
-#: the incidence loop's body without its scope loop (list word, table row,
-#: adds), and the scope loop's body (list word, packed state read,
-#: multiply-add)
-INSTR_PER_SITE, INSTR_PER_INC, INSTR_PER_SCOPE = 126, 18, 17
+#: arithmetic operations of the counter hash: the seed word (a product,
+#: two xors), two mixing rounds (three shift-xor pairs and two products
+#: each), and the 24-bit uniform (a shift, a conversion, a product)
+HASH_OPS = 3 + 2 * 8 + 3
 
 
-def grid_model(side: int, seed: int):
-    """Binary grid Markov net: one unary factor per var, one pairwise per
-    edge (the Grids_* family shape; ``__graft_entry__._grid_model``)."""
-    from grample_tpu_torch.pgm.discrete import DiscreteModel, Factor
-
-    rng = np.random.default_rng(seed)
-    v = side * side
-    factors = [Factor(f"u{i}", [i], rng.random(2) + 0.2) for i in range(v)]
-    for r in range(side):
-        for c in range(side):
-            i = r * side + c
-            if c + 1 < side:
-                factors.append(Factor(f"h{i}", [i, i + 1], rng.random(4) + 0.2))
-            if r + 1 < side:
-                factors.append(Factor(f"v{i}", [i, i + side], rng.random(4) + 0.2))
-    return DiscreteModel(type="MARKOV", cards=[2] * v, factors=factors)
+def site_operations(k: int, count: bool) -> int:
+    """Arithmetic operations of one site's draw at card bound ``k``, as
+    the window's definition (``window_plain``) needs them, whatever a
+    build emits for them."""
+    return (k  # logits outside the card masked
+            + (k - 1) + k + k  # the max, its subtraction, exp
+            + (k - 1)  # the total
+            + 1 + k + k  # the floor: a product, added to each, masked again
+            + (k - 1)  # the total again
+            + HASH_OPS + 1  # the uniform, scaled by the total
+            + (k - 2) + (k - 1) + (k - 1)  # running CDF, compares, outcome
+            + (1 if count else 0))  # the count
 
 
 def card_line() -> str:
@@ -189,15 +187,22 @@ def window_inputs(torch, dev, variants, caps, chains):
     return kst, torch.as_tensor(state_p, device=dev), free_rows, n_free
 
 
-def grid_variants():
+def grid_model(side: int, seed: int):
+    """Binary grid Markov net: one unary factor per var, one pairwise per
+    edge (the Grids_* family shape)."""
+    from grample_tpu_torch.pgm import discrete
+    from tests import torch_models
+
+    return torch_models.grid(discrete, side, seed)
+
+
+def grid_variants(card: int = 2):
     """The 10x10 grid's 2 variants (tables from seeds 1 and 2, 3 evidence
     vars) and their caps."""
-    from grample_tpu_torch.pgm.encode import compute_caps
+    from grample_tpu_torch.pgm import discrete
+    from tests import torch_models
 
-    models = [grid_model(10, s) for s in (1, 2)]
-    for m in models:
-        m.apply_evidence({0: 1, 55: 0, 99: 1})
-    return models, compute_caps(models[0], headroom_factors=0)
+    return torch_models.grid10_variants(discrete, card)
 
 
 def promedus_variants(wide: bool):
@@ -324,8 +329,9 @@ def window_bound(kst, chains, sweeps, count, clock_hz):
     """(bound_ms, bound_by) of one window on ``kst``: the larger of the
     bytes it must move over the card's memory rate (state rows read once,
     site rows written once, live counts written once, lists and tables
-    read once) and the thread operations of its live work over the
-    card's issue rate."""
+    read once) and the arithmetic its live work needs (``site_operations``
+    per live site, ``k`` table adds per live incidence, one multiply-add
+    per live scope entry) at one operation per lane and clock."""
     from grample_tpu_torch.ops.layout import H_WORDS, compact_counts
 
     live = compact_counts(kst["c_lists"].cpu().numpy()).astype(np.int64)
@@ -334,15 +340,25 @@ def window_bound(kst, chains, sweeps, count, clock_hz):
     words = int(kst["c_lists"][:, H_WORDS].sum().item())
     nbytes = 4 * (chains * (rows + sites + (2 * k * sites if count else 0))
                   + words + tfloats)
-    instr = sweeps * chains * (sites * INSTR_PER_SITE + incs * INSTR_PER_INC
-                               + scope * INSTR_PER_SCOPE)
-    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, instr / (LANES * clock_hz) * 1e3
+    ops = sweeps * chains * (sites * site_operations(k, count) + incs * k + scope)
+    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / (LANES * clock_hz) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def describe_launch(torch, kst, chains, count, label, sites=None):
+def reshaped(kst, plan, threads, stage_lists, stage_tables):
+    """``plan`` (thread per chain) at another block width and staging, or
+    None where that does not fit a block's shared memory."""
+    from grample_tpu_torch.ops import gibbs_cuda
+
+    sbytes = gibbs_cuda.state_bytes(kst["c_rows"].shape[1], kst["k_kmask"].shape[3], threads)
+    plan = dataclasses.replace(plan, threads=threads, state_bytes=sbytes,
+                               stage_lists=stage_lists, stage_tables=stage_tables)
+    return plan if plan.smem <= gibbs_cuda.MAX_SMEM_BYTES else None
+
+
+def describe_launch(torch, kst, chains, count, label, sites=None, plan=None):
     """Print the live work of ``kst`` per variant and the launch shape the
-    wrapper gives ``chains`` chains of it; returns the plan."""
+    wrapper gives ``chains`` chains of it (or ``plan``); returns the plan."""
     from grample_tpu_torch.ops import gibbs_cuda
     from grample_tpu_torch.ops.layout import compact_counts
 
@@ -350,7 +366,7 @@ def describe_launch(torch, kst, chains, count, label, sites=None):
     n, nc, g, k = kst["k_kmask"].shape
     f, s = kst["k_scope"].shape[3:]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
+    plan = plan or gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
     occ = gibbs_cuda.occupancy(k, plan)
     per = lambda col: f"{live[:, col].min()}-{live[:, col].max()}"  # noqa: E731
     print(f"launch, {label}: per variant live rows {per(0)} of {nc * g} slots, state rows "
@@ -688,10 +704,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1)
 
-    def kern(kst_, sites=None):
+    def kern(kst_, sites=None, plan=None):
         return lambda st, seed, sweeps, half, count, cb_: gibbs_cuda.gibbs_window(
             kst_, st, seed, sweeps, half, count, cb_,
-            form_plan(torch, kst_, st.shape[2], count, sites))
+            plan or form_plan(torch, kst_, st.shape[2], count, sites))
 
     def plain(kst_):
         return lambda *a: window_plain(*[kst_[k] for k in KERNEL_KEYS], *a)
@@ -699,6 +715,23 @@ def main() -> int:
     def best(fn, st0, sweeps, count=True, cb=cb) -> float:
         fn(st0.clone(), SEED, 1, 0, count, cb)  # warm
         return min(timed(fn, st0, sweeps, count, cb), timed(fn, st0, sweeps, count, cb))
+
+    def shape_rows(label, kst_, st0, nf, chains, sweeps, shapes):
+        """One counted thread-per-chain window at each (threads, lists
+        staged, tables staged) of ``shapes``, beside the rule's pick."""
+        fit = gibbs_cuda.plan_launch(
+            kst_, chains, True, torch.cuda.get_device_properties(0).multi_processor_count,
+            False)
+        for threads, lists, tables in shapes:
+            plan = reshaped(kst_, fit, threads, lists, tables)
+            if plan is None:
+                continue
+            name = (f"{label}, {sweeps}-sweep counted window, thread per chain at {threads} "
+                    f"threads, lists {'staged' if lists else 'in device memory'}, tables "
+                    f"{'staged' if tables else 'in device memory'}")
+            describe_launch(torch, kst_, chains, True, name, plan=plan)
+            ms = best(kern(kst_, plan=plan), st0, sweeps, cb=hash_block(chains))
+            rate_line(name, sweeps * chains * nf, ms)
 
     def rate_line(label, sites, kernel_ms, plain_ms=None, bound=None):
         text = (f"timing ({card}): {label}: kernel {kernel_ms:.3f} ms = "
@@ -750,6 +783,21 @@ def main() -> int:
     print(f"timing: the same window uncounted: {grid_ms['rule, uncounted'] / kernel_ms:.3f} of the "
           f"counted window", flush=True)
 
+    # the same grid at card 8: the instance with 8 logits a thread, held
+    # against the plain version and timed at each block width
+    k8models, k8caps = grid_variants(8)
+    k8kst, k8state0, k8free, k8n_free = window_inputs(torch, dev, k8models, k8caps, GRID_CHAINS)
+    compare_window(torch, k8kst, k8state0, k8free, k8n_free, k8caps.num_slots, GRID_CHAINS,
+                   cb, "10x10 grid at card 8")
+    k8label = "10x10 grid at card 8, 262144 chains"
+    describe_launch(torch, k8kst, GRID_CHAINS, True, f"{k8label}, {K8_SWEEPS}-sweep counted window")
+    rate_line(f"{k8label}, {K8_SWEEPS}-sweep counted window", K8_SWEEPS * GRID_CHAINS * k8n_free,
+              best(kern(k8kst), k8state0, K8_SWEEPS), None,
+              window_bound(k8kst, GRID_CHAINS, K8_SWEEPS, True, clock_hz))
+    shape_rows(k8label, k8kst, k8state0, k8n_free, GRID_CHAINS, K8_SWEEPS,
+               [(1024, True, True), (512, True, True), (256, True, True)])
+    del k8kst, k8state0
+
     # the collapse-headroom encodings of phase 3c, kernel and plain
     for label, kst_h, st_h, nf, chains, sweeps, err, replaces in (
             ("10x10 grid at headroom caps, 2 plain + 2 collapse variants x "
@@ -785,6 +833,10 @@ def main() -> int:
     wbound = window_bound(wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
     rate_line(f"the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window",
               WIDE_PAIR_SWEEPS * wsites, wide_ms, wide_plain_ms, wbound)
+    # block width against staging: what plan_launch's width rule rests on
+    shape_rows(wlabel, wkst, wstate0, wn_free, WIDE_CHAINS, WIDE_FULL_SWEEPS,
+               [(256, True, True), (256, False, False), (1024, True, True),
+                (1024, False, False)])
     del wkst, wstate0
 
     pvariants, pcaps, _ = promedus_variants(False)
@@ -795,9 +847,11 @@ def main() -> int:
     plain_copy_ms = best(kern(pkst), pstate0, TIMED_SWEEPS)
     rate_line(plabel, TIMED_SWEEPS * WIDE_CHAINS * pn_free, plain_copy_ms, None,
               window_bound(pkst, WIDE_CHAINS, TIMED_SWEEPS, True, clock_hz))
-    # the shape of the 5b runs' main group (2 x 8192 chains) and twice that, in
-    # both forms: the form rule's threshold lies where they tie
-    for copies in (2, 4):
+    shape_rows(f"{WIDE_SLOTS} plain copies x {WIDE_CHAINS} chains", pkst, pstate0, pn_free,
+               WIDE_CHAINS, 64, [(256, True, True), (256, True, False), (256, False, False)])
+    # the shape of the 5b runs' main group (2 x 8192 chains), twice and four
+    # times that, in both forms: the form rule's threshold lies where they tie
+    for copies in (2, 4, 8):
         small = {key: v[:copies] for key, v in pkst.items()}
         st_small = pstate0[:copies, :, :8192].contiguous()
         for name, by_site in (("thread per chain", False), ("site-parallel", True)):

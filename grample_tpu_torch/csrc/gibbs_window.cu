@@ -202,8 +202,14 @@ __device__ __forceinline__ int draw_site(float (&lg)[KMAX], uint32_t km, int k,
   return newv;
 }
 
+// Blocks are up to 1024 threads wide whatever the card bound: the launch
+// bound keeps the 16 logits of the widest instance within 64 registers.
+// It asks for one resident block, not two: aiming at two, the compiler
+// holds every instance to 32 registers and spills the logits at card
+// bounds above 2, and the binary instance gains nothing from the second
+// block (instruction throughput bounds the kernel, not latency).
 template <int KMAX, bool COUNT>
-__global__ void gibbs_window_kernel(const Params p) {
+__global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
   // state rows are packed BITS to a row, 32 / BITS rows to a word
   constexpr int BITS = KMAX <= 2 ? 1 : KMAX <= 4 ? 2 : 4;
   constexpr int RSH = BITS == 1 ? 5 : BITS == 2 ? 4 : 3;  // log2(rows per word)

@@ -29,7 +29,14 @@ bytes the live work needs, not from the caps:
     that is 1024 threads with the lists staged once per SM: measured, the
     Promedus-shaped collapse variants run 1.7x faster so than in
     256-thread blocks, and faster than with nothing staged and six times
-    the resident warps;
+    the resident warps.  The estimate counts shared memory and threads,
+    not registers: the kernel's launch bound lets every instance run
+    1024-thread blocks (at most 64 registers a thread), and at the 43 to
+    64 registers the instances take, an SM keeps 1024 to 1280 threads
+    resident, not 2048, at any width.  The rule was measured on binary
+    nets and, for full-card launches, on a 10x10 grid at card 8 (the
+    widest block is the fastest there too); other cards and shapes are
+    not measured;
   - counts are one reduction without a return value per site into the
     zero-initialised count tensor (16-bit counters in shared memory were
     measured beside it and were slower: they cost resident warps).
@@ -165,7 +172,7 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
     contract); ``kst`` is ``ops.sweep.sweep_tensors`` output, ``state`` is
     updated in place.  Padding rows are neither counted nor written.
     ``plan`` replaces the launch shape ``plan_launch`` would give (the
-    smoke run, the tests and ``launch_shapes.py`` compare shapes)."""
+    smoke run and the tests compare shapes)."""
     n, nc, g, k = kst["k_kmask"].shape
     if tuple(state.shape[:1]) != (n,) or state.dim() != 3:
         raise ValueError(f"state {tuple(state.shape)} does not stack {n} variants")

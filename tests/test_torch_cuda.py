@@ -101,6 +101,24 @@ def test_kernel_matches_plain_on_card(cuda_device, name):
     _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096)
 
 
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("card", [8, 16])
+def test_full_card_launch_at_wide_cards(cuda_device, card, count):
+    """2 x 131072 chains of a 3x3 grid at card 8 and 16 fill the card: the
+    rule launches a thread per chain in 1024-thread blocks, which the
+    instances that hold 8 and 16 logits a thread must fit in registers."""
+    m = torch_models.grid(port_pgm, 3, seed=5, card=card)
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc, enc]), cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = gibbs_cuda.plan_launch(kst, 131072, count, sms)
+    assert not plan.sites and plan.threads == 1024
+    occ = gibbs_cuda.occupancy(card, plan)
+    assert occ["max_threads"] >= plan.threads and occ["blocks_per_sm"] >= 1, occ
+    assert occ["registers"] * plan.threads <= 65536, occ
+    _kernel_vs_plain([enc, enc], cuda_device, 131072, count)
+
+
 def _wide_encs(name):
     """Stacked encodings with wide local tables: (encodings, rows, scope)."""
     if name == "wide10":  # a dv-rel-shaped 10-var binary factor: 512 rows

@@ -160,9 +160,7 @@ def test_live_counts_of_the_smoke_shapes(net, want):
     """The live work of the smoke run's 10x10 grid and Promedus-shaped net
     at their plain caps, per variant."""
     if net == "grid10":
-        import chip_smoke
-
-        models, caps = chip_smoke.grid_variants()
+        models, caps = torch_models.grid10_variants(port_pgm)
         m = models[0]
     else:
         m, evidence = torch_models.promedus_like(port_pgm, seed=1)

@@ -5,7 +5,8 @@ Each builder takes the ``discrete`` module of one package
 draws its tables from numpy with a fixed seed, so both packages see the
 same model.  ``collapsed`` builds a collapse variant with the same
 package's ``sampler.collapse``; ``promedus_like`` is the Promedus-shaped
-Bayes net that ``chip_smoke.py`` also runs.
+Bayes net and ``grid10_variants`` the 10x10 grid that ``chip_smoke.py``
+also runs.
 """
 
 import importlib
@@ -27,6 +28,18 @@ def grid(pgm, side=3, seed=7, card=2):
             if r + 1 < side:
                 factors.append(pgm.Factor(f"v{i}", [i, i + side], rng.random(card * card) + 0.2))
     return pgm.DiscreteModel(type="MARKOV", cards=[card] * v, factors=factors)
+
+
+def grid10_variants(pgm, card=2):
+    """The smoke run's 10x10 grid (100 vars, 280 factors; binary unless
+    ``card`` says otherwise): 2 variants (tables from seeds 1 and 2, the
+    same 3 evidence vars) and their plain caps, built with ``pgm``'s own
+    package."""
+    encode = importlib.import_module(pgm.__name__.rsplit(".", 2)[0] + ".pgm.encode")
+    models = [grid(pgm, 10, s, card) for s in (1, 2)]
+    for m in models:
+        m.apply_evidence({0: 1, 55: 0, 99: 1})
+    return models, encode.compute_caps(models[0], headroom_factors=0)
 
 
 def rand_model(pgm, seed, v=6, max_card=3, n_factors=7, max_scope=3):
