@@ -29,6 +29,16 @@ non-zero:
      collapse variants, 4 x 32768 chains; (b) the Promedus-shaped net at
      the split group's ``aux_caps`` (local tables of 256 rows, 4200 padded
      state rows), 8 collapse variants picked by ``SEED``, 8 x 256 chains;
+  3d. the kernel under a device mesh: the 10x10 grid, 2 variants x 131072
+     chains, a ``ShardedChainGroup`` on a 2x2 virtual mesh of the one card
+     (every shard on ``cuda:0``, launched one after the other) beside a
+     ``ChainGroup`` with the same hash width: after a burn and two counted
+     windows state, halves and totals must be equal; each shard's launch
+     plan, and its window against the plain version on that shard's own
+     tensors and seed; the group saved, resumed onto a 1x4 mesh, advanced,
+     and held against the group that was never saved; host seconds of a
+     flush and of the PSRF moment sum.  A virtual mesh's times say nothing
+     about scaling;
   4. the main path through the CLI: ``sample -s simple`` on a 4x4 grid
      with evidence and an exact ``.MAR``, 2 x 131072 chains; the MAR it
      writes must be within 0.005 max Hellinger of the exact marginals
@@ -49,6 +59,16 @@ non-zero:
      chains) equals, bit for bit, itself saved, loaded and advanced; and
      the run of 4d with ``--checkpoint``, stopped by its budget, then
      ``--resume``d: it continues the sample count and the RB weights;
+  4f. ``-s adaptive`` through the engine under a 2x2 virtual mesh of the
+     card (``Engine(cfg, devices=[card] * 4)``) on the 4x4 grid of phase 4:
+     the ``device mesh:`` line and an ``ADAPT:`` line in the log, the same
+     Hellinger bound; and ``--mesh auto`` through the CLI on the one card,
+     which must run unsharded and say nothing of a mesh;
+  4g. tooling: ``dot`` on the 4x4 grid (as many edges as the moral graph
+     has); the native anchor sampler (host C++, built with g++) on that
+     grid, 2e6 single-site samples, within 0.02 max Hellinger of exact,
+     its samples/s printed with the host CPU's name; the UAI parser's
+     native tokenizer against the portable one;
   5. timing (CUDA events; each line names the card and its power limit):
      the 10x10 grid at 262144 chains, one 256-sweep window, each kernel
      form and plain; the headroom encodings of 3c; the 8 Promedus-shaped
@@ -84,6 +104,7 @@ import dataclasses
 import io
 import json
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -281,10 +302,11 @@ def form_plan(torch, kst, chains, count, sites):
     return gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
 
 
-def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label):
-    """One sweep through every form of the kernel and through the plain
-    version from the same state; returns {form label: largest state
-    difference}."""
+def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label,
+                   seed=SEED, forms=None):
+    """One sweep through every form of the kernel (or ``forms`` of
+    ``KERNEL_FORMS``) and through the plain version from the same state
+    and ``seed``; returns {form label: largest state difference}."""
     from grample_tpu_torch.ops import gibbs_cuda
     from grample_tpu_torch.ops.gibbs_torch import window_plain
     from grample_tpu_torch.ops.sweep import KERNEL_KEYS
@@ -293,11 +315,11 @@ def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, lab
     free = free_rows.bool()
     errs = {}
     plain_out = {}
-    for form, count, by_site in KERNEL_FORMS:
+    for form, count, by_site in forms or KERNEL_FORMS:
         if count not in plain_out:
-            plain_out[count] = window_plain(*args, state0.clone(), SEED, 1, 0, count, cb)
+            plain_out[count] = window_plain(*args, state0.clone(), seed, 1, 0, count, cb)
         sp, cp = plain_out[count]
-        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), SEED, 1, 0, count, cb,
+        sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), seed, 1, 0, count, cb,
                                          form_plan(torch, kst, chains, count, by_site))
         torch.cuda.synchronize()
         diff = (sk[:, :nslot] != sp[:, :nslot]) & free[:, :, None]
@@ -420,6 +442,31 @@ def adapt_secs(log):
             for ln in log.splitlines() if ln.startswith("ADAPT: ")]
 
 
+def cpu_name() -> str:
+    """The host CPU's model, from ``/proc/cpuinfo`` or ``lscpu``."""
+    with open("/proc/cpuinfo") as fh:
+        for ln in fh:
+            if ln.lower().startswith("model name"):
+                return ln.split(":", 1)[1].strip()
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=60).stdout
+    except OSError:
+        out = ""
+    for ln in out.splitlines():
+        if ln.startswith(("Model name", "Vendor ID")):
+            return ln.split(":", 1)[1].strip()
+    return f"{platform.machine()} CPU, model not reported"
+
+
+def kernel_order(torch, kst, state):
+    """Chain state [N, C, V+1] in the kernel's row order [N, NVp, C], as
+    ``ops.sweep.advance_chains`` hands it to the kernel."""
+    n, c, _ = state.shape
+    oon = kst["pal_oon"].long()
+    return torch.gather(state, 2, oon[:, None, :].expand(n, c, oon.shape[1])) \
+        .transpose(1, 2).contiguous()
+
+
 def main() -> int:
     import torch
 
@@ -435,7 +482,10 @@ def main() -> int:
     from grample_tpu_torch.ops.sweep import KERNEL_KEYS, hash_block
     from grample_tpu_torch.pgm import discrete
     from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP, caps_for_variants
+    from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh, shard_seed
     from grample_tpu_torch.pgm.exact import exact_marginals
+    from grample_tpu_torch.sampler.chains import ChainGroup, window_seed
+    from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
     from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
     from grample_tpu_torch.sampler.split import AUX_CHAINS
@@ -517,6 +567,90 @@ def main() -> int:
         torch, akst, astate0, afree, an_free, acaps.num_slots, AUX_CHAINS,
         hash_block(AUX_CHAINS),
         f"{WIDE_SLOTS} aux collapse variants x {AUX_CHAINS} chains").values())
+
+    # ---- 3d. the kernel under a device mesh ----------------------------------
+    def same_as(group, plain_group, what):
+        """Every shard of ``group`` equals its block of ``plain_group``."""
+        nl, cl = group.local_slots, group.local_chains
+        for sh in group.shards:
+            rows, cols = slice(sh.v0, sh.v0 + nl), slice(sh.c0, sh.c0 + cl)
+            check(torch.equal(sh.state, plain_group.state[rows, cols]),
+                  f"3d, {what}: shard ({sh.vi}, {sh.ci}) state differs from the unsharded group's")
+            check(torch.equal(sh.halves, plain_group.halves[rows, :, cols]),
+                  f"3d, {what}: shard ({sh.vi}, {sh.ci}) halves differ")
+        check(np.array_equal(group.totals[: plain_group.slot_cap], plain_group.totals),
+              f"3d, {what}: totals differ")
+
+    t0 = time.perf_counter()
+    mesh_cw = 20
+    sharded = ShardedChainGroup(models[0], GRID_CHAINS, mesh_cw, seed=SEED, caps=caps,
+                                mesh=chain_mesh(variant_ways=2, devices=[dev] * 4))
+    unsharded = ChainGroup(models[0], GRID_CHAINS, mesh_cw, dev, seed=SEED, caps=caps)
+    unsharded.cb = sharded.cb
+    reset_counts()
+    for g in (sharded, unsharded):
+        g.add_variants(models)
+        g.burn(10)
+        g.advance(defer=True)
+        g.advance(defer=True)
+        torch.cuda.synchronize()
+        t_flush = time.perf_counter()
+        g.flush()
+        flush_secs = time.perf_counter() - t_flush
+        print(f"3d: {'sharded 2x2' if g is sharded else 'unsharded'} group, 2 x {GRID_CHAINS} "
+              f"chains: flush of two windows' deltas {flush_secs * 1e3:.3f} ms of host time; "
+              f"launches so far {dict(gibbs_cuda.gibbs_window.launches_by_form)}", flush=True)
+    same_as(sharded, unsharded, "a burn and two counted windows")
+    merged = sharded.merged_marginals()
+
+    def psrf_secs(group):
+        """(PSRF, host seconds of the call): the second of two calls, so
+        that neither group pays for the first use of the torch ops."""
+        group.convergence(merged=merged)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        return group.convergence(merged=merged), time.perf_counter() - t
+
+    psrf_sharded, mom_secs = psrf_secs(sharded)
+    psrf_unsharded, mom_plain_secs = psrf_secs(unsharded)
+    check(np.allclose(psrf_sharded, psrf_unsharded, rtol=1e-5),
+          "3d: PSRF from summed shard moments differs from the unsharded group's")
+    print(f"3d ({card}; a virtual mesh on one card, no scaling figure): sharded equals "
+          f"unsharded on state, halves and totals; PSRF by shard moments summed on the host "
+          f"{mom_secs * 1e3:.3f} ms of host time, unsharded {mom_plain_secs * 1e3:.3f} ms",
+          flush=True)
+    shard_errs = []
+    seed_3d = window_seed(SEED, sharded._step + 1)  # the next window's
+    for sh, na, kst_sh in sharded.active_shards():
+        name = f"3d shard ({sh.vi}, {sh.ci}): {na} x {sharded.local_chains} chains"
+        describe_launch(torch, kst_sh, sharded.local_chains, True, name)
+        st_sh = kernel_order(torch, kst_sh, sh.state[:na])
+        shard_errs.append(max(compare_window(
+            torch, kst_sh, st_sh, kst_sh["k_kmask"].reshape(na, -1, caps.max_card).any(dim=2),
+            int(models[sh.v0].free_mask.sum()), caps.num_slots, sharded.local_chains, sharded.cb,
+            name, seed=shard_seed(seed_3d, sh.v0, sh.c0 // sharded.cb),
+            forms=KERNEL_FORMS[:2]).values()))
+    # one shard's tensors, timed in phase 5
+    sh0, na0, shard_kst = next(iter(sharded.active_shards()))
+    shard_state0 = kernel_order(torch, shard_kst, sh0.state[:na0])
+    shard_n_free = int(models[0].free_mask.sum())
+    with tempfile.TemporaryDirectory() as td:
+        ck = os.path.join(td, "mesh.npz")
+        save_checkpoint(ck, sharded)
+        resumed, _ = load_checkpoint(
+            ck, models[0], device=dev,
+            make_group=lambda m, **kw: ShardedChainGroup(
+                m, mesh=chain_mesh(variant_ways=1, devices=[dev] * 4), caps=caps, **kw))
+    check(resumed.mesh.shape == {"variants": 1, "chains": 4} and resumed.cb == sharded.cb,
+          f"3d: resumed onto {resumed.mesh.shape} with cb {resumed.cb}")
+    for g in (sharded, unsharded, resumed):
+        g.advance()
+    same_as(sharded, unsharded, "a third window")
+    same_as(resumed, unsharded, "saved on 2x2, resumed on 1x4, advanced")
+    print(f"3d: saved on a 2x2 mesh, resumed on 1x4, advanced: equal to the group that was "
+          f"never saved; launches by form {dict(gibbs_cuda.gibbs_window.launches_by_form)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del sharded, unsharded, resumed
 
     # ---- 4. the main path through the CLI ------------------------------------
     model = grid_model(4, 7)
@@ -642,9 +776,6 @@ def main() -> int:
                   f"{a_score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
 
         # ---- 4e. kill and resume on the card ---------------------------------
-        from grample_tpu_torch.sampler.chains import ChainGroup
-        from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
-
         gmodel = grid_variants()[0][0]
 
         def fresh():
@@ -692,6 +823,80 @@ def main() -> int:
               f"{snaps1} -> {dict(g2.aux._rbp_snaps)}, {launches_r} kernel launches after "
               f"resume", flush=True)
         del g1, g2
+
+        # ---- 4f. the adaptive engine under a mesh; --mesh auto ------------------
+        mesh_secs = 20
+        cfg = EngineConfig(
+            model_path=path, device="cuda", use_evidence=True, use_solution=True,
+            sampler="adaptive", chains=2, chains_per_variant=GRID_CHAINS, chain_adds=2,
+            burnin=200 * v, converge_window=100 * v, max_secs=float(mesh_secs), seed=SEED,
+            mesh="2x2")
+        lines = []
+        reset_counts()
+        t0 = time.perf_counter()
+        res = Engine(cfg, log=lines.append, devices=[dev] * 4).run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_m = read_counts("4f")
+        mesh_line = [ln for ln in lines if ln.startswith("device mesh:")]
+        steps = adapt_secs("\n".join(lines))
+        check(mesh_line == ["device mesh: {'variants': 2, 'chains': 2} over 4 devices"],
+              f"4f: mesh line {mesh_line}")
+        check(not any("split group" in ln for ln in lines), "4f: a split group under a mesh")
+        check(len(steps) >= 1 and len(res.collapsed) >= 2,
+              f"4f: {len(steps)} adapt steps, collapsed vars {res.collapsed}")
+        check(launches_m > 0, "4f: the sharded engine run did not launch the kernel")
+        check(np.isfinite(res.marginals).all() and res.marginals.shape == (v, 2),
+              "4f: bad marginals")
+        check(res.final_score.max_hellinger < HELL_BOUND,
+              f"4f: max Hellinger {res.final_score.max_hellinger:.5f} >= {HELL_BOUND}")
+        print(f"engine -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {mesh_secs} under a 2x2 "
+              f"virtual mesh of the card (4f; {card}; no scaling figure): {secs:.1f} s, "
+              f"{launches_m} kernel launches, {len(steps)} adapt steps ({sum(steps):.3f} s of "
+              f"host time), collapsed vars {res.collapsed}, {res.variants} variants, "
+              f"{res.samples_per_sec:.4e} counted site-samples/s, max Hellinger "
+              f"{res.final_score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
+        reset_counts()
+        rc, log = run_cli(cli, ["sample", "-m", path, "-d", "-o", "-s", "simple", "--mesh", "auto",
+                                "--vchains", str(GRID_CHAINS), "-b", str(200 * v),
+                                "-w", str(100 * v), "-x", "5", "-e", str(SEED)])
+        launches_auto = read_counts("4f auto")
+        check(rc == 0 and "FINAL" in log, f"4f: --mesh auto returned {rc}")
+        check("device mesh" not in log, "4f: --mesh auto on one card spoke of a mesh")
+        check(launches_auto > 0, "4f: --mesh auto did not launch the kernel")
+        print(f"cli sample -s simple --mesh auto on {torch.cuda.device_count()} card: "
+              f"unsharded, {launches_auto} kernel launches", flush=True)
+
+        # ---- 4g. tooling --------------------------------------------------------
+        from grample_tpu_torch import native
+        from grample_tpu_torch.pgm.coloring import moral_adjacency
+        from grample_tpu_torch.uai import parser
+
+        rc, dot = run_cli(cli, ["dot", "-m", path])
+        adj = moral_adjacency(v, [f.scope for f in model.factors])
+        edges = [ln for ln in dot.splitlines() if " -- " in ln]
+        check(rc == 0 and len(edges) == sum(len(a) for a in adj) // 2,
+              f"4g: dot printed {len(edges)} edges")
+        check(native.load() is not None, "4g: the native tier did not build")
+        counts, a_secs, a_rate = native.anchor_gibbs(model_ev, 2_000_000, seed=SEED)
+        free = model_ev.fixed < 0
+        a_score = error_suite(counts.astype(np.float64) + 1e-9, truth, model_ev.cards,
+                              model_ev.fixed, None)
+        check(int(counts[free].sum()) == 2_000_000 and int(counts[~free].sum()) == 0,
+              "4g: the anchor's counts do not add up")
+        check(a_score.max_hellinger < 0.02,
+              f"4g: anchor max Hellinger {a_score.max_hellinger:.5f} >= 0.02")
+        with open(path) as fh:
+            text = fh.read()
+        fast, portable = parser.parse_model(text), parser.parse_model(text, native=False)
+        check(len(fast.factors) == len(portable.factors) and all(
+            np.array_equal(a.table, b.table) and np.array_equal(a.scope, b.scope)
+            for a, b in zip(fast.factors, portable.factors)),
+            "4g: the native tokenizer's model differs from the portable one's")
+        print(f"tooling (4g): dot {len(edges)} edges; native anchor on the 4x4 grid, 2e6 "
+              f"samples: {a_rate:.4e} samples/s on one core of the host ({cpu_name()}; a host "
+              f"figure, beside the card {card}), max Hellinger {a_score.max_hellinger:.6f} "
+              f"(bound 0.02); native tokenizer's model equals the portable one's", flush=True)
 
     # ---- 5. timing ---------------------------------------------------------
     def timed(fn, st0, sweeps, count=True, cb=cb) -> float:
@@ -821,6 +1026,23 @@ def main() -> int:
                of_phases("4c") if kst_h is hkst else of_phases("4d", "4e", "5b adaptive"),
                err, k_ms, p_ms, bound)
     del hkst, hstate0, akst, astate0
+
+    # one shard of phase 3d's 2x2 mesh: the launch a sharded group makes
+    sh_chains = shard_state0.shape[2]
+    sh_label = (f"one shard of the 10x10 grid on a 2x2 mesh, {shard_state0.shape[0]} x "
+                f"{sh_chains} chains, {TIMED_SWEEPS}-sweep counted window")
+    sh_plan = describe_launch(torch, shard_kst, sh_chains, True, sh_label)
+    sh_cb = hash_block(sh_chains)
+    sh_ms = best(kern(shard_kst), shard_state0, TIMED_SWEEPS, cb=sh_cb)
+    sh_plain_ms = timed(plain(shard_kst), shard_state0, TIMED_SWEEPS, cb=sh_cb)
+    sh_bound = window_bound(shard_kst, sh_chains, TIMED_SWEEPS, True, clock_hz)
+    rate_line(sh_label, TIMED_SWEEPS * sh_chains * shard_n_free, sh_ms, sh_plain_ms, sh_bound)
+    print(f"timing: four such shards one after the other {4 * sh_ms:.3f} ms, the unsharded "
+          f"window {kernel_ms:.3f} ms ({gibbs_cuda.form_name(sh_plan)}; one card, one stream: "
+          f"no scaling figure)", flush=True)
+    record("gibbs_window (sharded launch)", "grample_tpu/parallel/mesh.py:137",
+           of_phases("4f"), max(shard_errs), sh_ms, sh_plain_ms, sh_bound)
+    del shard_kst, shard_state0
 
     wsites = WIDE_CHAINS * wn_free
     wlabel = f"{WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains"

@@ -1,5 +1,6 @@
 """Command-line interface: ``sample`` (``-s simple``, ``-s collapsed`` and
-``-s adaptive``, with ``--checkpoint``/``--resume``) and ``collapse``.
+``-s adaptive``, with ``--checkpoint``/``--resume`` and ``--mesh``),
+``collapse`` and ``dot``.
 
 Mirrors ``grample_tpu.cli`` (reference ``cmd/root.go:163-250``) with the
 same flags and derived defaults, on a PyTorch device:
@@ -9,11 +10,14 @@ same flags and derived defaults, on a PyTorch device:
     python -m grample_tpu_torch.cli sample -m net.uai -d -o -s adaptive -a 4 --vchains 8192
     python -m grample_tpu_torch.cli sample -m net.uai -s adaptive --checkpoint ck.npz --resume
     python -m grample_tpu_torch.cli sample -m net.uai -o --device cpu
+    python -m grample_tpu_torch.cli sample -m net.uai -s adaptive --mesh auto
     python -m grample_tpu_torch.cli collapse -m net.uai
+    python -m grample_tpu_torch.cli dot -m net.uai
 
-The parts of the reference CLI that later slices port raise
-``NotImplementedError`` naming their ROADMAP.md item: ``--mesh``/
-``--distributed`` (A11) and the ``dot`` subcommand (A12).
+``--distributed`` (multi-host) raises ``NotImplementedError`` naming its
+ROADMAP.md item, A11b: the reference addresses every host's devices from
+one program; PyTorch has no such runtime, so a multi-host run needs an
+engine whose every wall-clock decision is agreed between processes.
 """
 
 from __future__ import annotations
@@ -87,26 +91,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "reduced-chain collapse slots (see sampler/split.py)")
     s.add_argument("--reserve", type=int, default=0,
                    help="pre-size variant slot capacity (avoids mid-run restacks)")
-    s.add_argument("--mesh", default="off", help="(not ported: ROADMAP.md A11)")
+    s.add_argument("--mesh", default="off",
+                   help="device mesh: off | auto | VxC (variants x chains), e.g. 2x4: "
+                        "shard the chains over several GPUs")
     s.add_argument("--distributed", action="store_true",
-                   help="(not ported: ROADMAP.md A11)")
+                   help="(multi-host runs are not ported: ROADMAP.md A11b)")
 
     c = sub.add_parser("collapse", parents=[common],
                        help="per-variable exact-collapse validation vs <model>.MAR")
     c.add_argument("-m", "--model", required=True)
     # evidence always applies, as in the reference (its flag defaults on)
     c.add_argument("-d", "--evidence", action="store_true", default=True)
-    d = sub.add_parser("dot", help="(not ported: ROADMAP.md A12)", parents=[common])
+    d = sub.add_parser("dot", help="export the moral graph in Graphviz format",
+                       parents=[common])
     d.add_argument("-m", "--model", required=True)
     d.add_argument("-d", "--evidence", action="store_true")
     return p
 
 
 def cmd_sample(args) -> int:
-    for flag, given in (("--mesh", args.mesh not in ("", "off")),
-                        ("--distributed", args.distributed)):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md A11)")
+    if args.distributed:
+        raise NotImplementedError(
+            "--distributed is not ported (ROADMAP.md A11b): one process drives "
+            "every GPU of its host (--mesh); a multi-host run needs an engine "
+            "whose wall-clock decisions (budget, adapt window, checkpoints) are "
+            "agreed between processes")
 
     from grample_tpu_torch.monitor import Monitor
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
@@ -140,6 +149,7 @@ def cmd_sample(args) -> int:
         resume=args.resume,
         split_group=args.split_group,
         reserve_slots=args.reserve,
+        mesh=args.mesh,
     )
     engine = Engine(cfg)  # checks the config before any work
     monitor = None
@@ -198,14 +208,32 @@ def cmd_collapse(args) -> int:
     return 0
 
 
+def cmd_dot(args) -> int:
+    """Graphviz moral-graph export (reference cmd/dot.go:18-79; the same
+    lines as ``grample_tpu.cli.cmd_dot``)."""
+    from grample_tpu_torch.pgm.coloring import moral_adjacency
+    from grample_tpu_torch.uai import load_model
+
+    model = load_model(args.model, use_evidence=args.evidence)
+    adj = moral_adjacency(model.num_vars, [f.scope for f in model.factors])
+    print("strict graph G {")
+    for a in range(model.num_vars):
+        for b in sorted(adj[a]):
+            if b > a:
+                print(f"    {model.var_name(a)} -- {model.var_name(b)};")
+    print("}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "sample":
         return cmd_sample(args)
     if args.command == "collapse":
         return cmd_collapse(args)
-    raise NotImplementedError(
-        f"the {args.command!r} command is not ported yet (ROADMAP.md A12)")
+    if args.command == "dot":
+        return cmd_dot(args)
+    return 2
 
 
 if __name__ == "__main__":

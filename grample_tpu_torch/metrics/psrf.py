@@ -52,17 +52,19 @@ def _measure(name: str, a, b, card_mask, cards):
     raise ValueError(f"unknown measure {name!r}")
 
 
-def chain_convergence(
+def convergence_moments(
     half1,  # [M, V, K] per-chain counts, older half of the window
     half2,  # [M, V, K] per-chain counts, newer half of the window
     merged,  # [V, K] merged marginal estimate (counts or probs)
     cards,  # [V] int
-    converged_mask,  # [V] bool — fixed or collapsed vars (score 1.0)
     chain_mask,  # [M] bool — active chains
-    cw: float,  # ConvergenceWindow (samples per var per window)
     measure: str = "hellinger",
 ):
-    """Per-variable PSRF scores, shape [V] float32."""
+    """The over-chain sums of the PSRF: ``(sum_w, sum_b, m)``, the summed
+    within- and between-chain distances [V] float32 and the number of
+    active chains.  Moments of disjoint chain sets add, so a group whose
+    chains live on several devices sums its shards' moments
+    (``parallel.mesh``; reference ``mesh.py:169-211``)."""
     half1, half2 = half1.to(torch.float32), half2.to(torch.float32)
     merged = merged.to(torch.float32)
     k = half1.shape[-1]
@@ -75,12 +77,34 @@ def chain_convergence(
     between = _measure(measure, merged[None], h1 + h2, card_mask, cards)
 
     cmask = chain_mask[:, None].to(within.dtype)
-    m = torch.clamp(chain_mask.sum().to(within.dtype), min=2.0)
-    n = torch.tensor(float(cw), dtype=within.dtype, device=within.device)
+    return ((within * cmask).sum(dim=0), (between * cmask).sum(dim=0),
+            chain_mask.sum().to(within.dtype))
 
-    w = (_SMOOTH + (within * cmask).sum(dim=0)) / m
-    b = (_SMOOTH + (between * cmask).sum(dim=0)) * (n / (m - 1.0))
+
+def psrf_from_moments(sum_w, sum_b, m, cw: float, converged_mask):
+    """Per-variable PSRF [V] float32 from the moments of all chains
+    (reference ``mesh.py:214-222``)."""
+    m = torch.clamp(m, min=2.0)
+    n = torch.tensor(float(cw), dtype=sum_w.dtype, device=sum_w.device)
+
+    w = (_SMOOTH + sum_w) / m
+    b = (_SMOOTH + sum_b) * (n / (m - 1.0))
 
     vhat = ((n - 1.0) / n) * w + ((m + 1.0) / (m * n)) * b
     psrf = torch.sqrt((4.0 * vhat) / (2.0 * w))
     return torch.where(converged_mask, 1.0, psrf)
+
+
+def chain_convergence(
+    half1,  # [M, V, K] per-chain counts, older half of the window
+    half2,  # [M, V, K] per-chain counts, newer half of the window
+    merged,  # [V, K] merged marginal estimate (counts or probs)
+    cards,  # [V] int
+    converged_mask,  # [V] bool — fixed or collapsed vars (score 1.0)
+    chain_mask,  # [M] bool — active chains
+    cw: float,  # ConvergenceWindow (samples per var per window)
+    measure: str = "hellinger",
+):
+    """Per-variable PSRF scores, shape [V] float32."""
+    sum_w, sum_b, m = convergence_moments(half1, half2, merged, cards, chain_mask, measure)
+    return psrf_from_moments(sum_w, sum_b, m, cw, converged_mask)

@@ -10,6 +10,12 @@ built at first use and rebuilt when the sources' hash changes; what the
 compiler printed (``-Xptxas -v``: registers, spills and shared memory of
 every kernel instance) is kept beside it as ``.log``.  A failed build
 raises; nothing falls back.
+
+``load_host_library`` builds one host C++ source (no CUDA) with
+``g++ -O2 -shared -fPIC`` into the same directory under the same
+staleness rule.  It returns None where no compiler is found: its callers
+(``grample_tpu_torch.native``) have portable Python paths, and no device
+work is involved.
 """
 
 from __future__ import annotations
@@ -54,6 +60,33 @@ def library_path() -> str:
         with open(src, "rb") as fh:
             h.update(os.path.basename(src).encode() + fh.read())
     return os.path.join(BUILD_DIR, f"libgrample_{h.hexdigest()[:16]}.so")
+
+
+HOST_FLAGS = ["-O2", "-shared", "-fPIC"]
+
+
+def load_host_library(name: str):
+    """Build ``csrc/<name>`` with g++ if its library is missing, then load
+    it; None when no compiler is found or the build fails."""
+    src = os.path.join(CSRC_DIR, name)
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + fh.read()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"lib{os.path.splitext(name)[0]}_{digest}.so")
+    if not os.path.exists(path):
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, src], check=True,
+                           capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            os.unlink(tmp)
+            return None
+        os.replace(tmp, path)
+    return ctypes.CDLL(path)
 
 
 def load_library() -> ctypes.CDLL:

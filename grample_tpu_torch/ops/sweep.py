@@ -79,8 +79,12 @@ def hash_block(chains: int) -> int:
 def sweep_tensors(stack: dict, device) -> dict:
     """Kernel-order sweep tensors on ``device`` from a stacked encoding
     (``pgm.encode.stack_variants`` output, numpy, leading axis N)."""
-    return {k: torch.as_tensor(v, device=device)
-            for k, v in kernel_stack(stack).items()}
+    return to_device(kernel_stack(stack), device)
+
+
+def to_device(kst: dict, device) -> dict:
+    """``ops.layout.kernel_stack`` output (numpy) as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in kst.items()}
 
 
 def write_slots(kst: dict, slots, fresh: dict) -> None:

@@ -1,0 +1,364 @@
+"""Chains sharded over several devices, driven by one process.
+
+Counterpart of ``grample_tpu.parallel.mesh``.  The devices form a 2-D
+grid ``("variants", "chains")``:
+
+  - ``variants`` shards the variant slot axis N in contiguous blocks of
+    ``slot_cap / vdim`` slots: each row of the grid holds its own
+    variants' sweep tensors;
+  - ``chains`` shards the micro-chain axis C in contiguous blocks of
+    ``cpv / cdim`` chains: pure data parallelism over Gibbs chains.
+
+The reference is one program that runs the sweep under ``shard_map`` and
+reduces with ``psum``.  The port keeps the single controller and drops
+the collectives: one Python process launches a window on each device in
+turn.  Launches are asynchronous and a sweep needs no communication, so
+the devices run side by side; the engine's wall-clock decisions (budget,
+adapt window, checkpoints) are taken once, by the one process, and cannot
+disagree between devices.  The reductions happen where the unsharded
+group already has them, on the host: each shard's window delta stays on
+its device until ``flush`` adds it into the float64 totals, and the PSRF
+moments of the shards (two [V] vectors and a count each) are summed
+before ``psrf_from_moments``.
+
+**Draws do not depend on the mesh.**  The sweep's hash cell is ``seed +
+65537 * variant + 257 * (chain // cb)`` mod 2^32 (``ops.gibbs_torch.
+window_cell``, the same in the CUDA kernel).  A shard that starts at
+variant ``v0`` and chain ``c0`` is launched with ``shard_seed``: the
+window's seed plus ``65537 * v0 + 257 * (c0 // cb)``, so its local cells
+are the unsharded window's cells, provided ``cb`` divides the local chain
+width (``cb = hash_block(cpv // cdim)``).  A sharded group therefore
+equals a ``ChainGroup`` with the same ``cb`` and slot capacity bit for
+bit on state, halves and totals, on any mesh, and a checkpoint written
+on one mesh resumes on another (the snapshot carries ``cb``).  The
+reference instead folds the shard's grid position into its key
+(``mesh.py:131-136``), so its draws change with the mesh.
+
+**How the base class sees the tensors.**  ``ChainGroup`` touches its
+device tensors through a few small methods; this class replaces exactly
+those with loops over the shards (the hot ones: ``_advance_fn``,
+``_window_delta``, ``convergence``, ``_rb_index_rows``) or with slot-wise
+writes (``_place``, ``_write_slots``).  ``state`` and ``halves`` are
+read-only properties that gather the shards to the host, for the rare
+readers (a checkpoint, a test); nothing on the hot path reads them, and
+an assignment raises.  ``kstack`` is, per grid row, ``{device: sweep
+tensors}``: the chain shards of a row share the row's tensors, one copy
+per device, made when the row changes and not per window.
+
+A device may appear several times in a mesh (``chain_mesh(devices=...)``):
+its shards then run one after the other on one stream.  That virtual mesh
+is how the tests run a 2x2 grid on the CPU and the smoke run on one card;
+its times say nothing about scaling.
+
+A shard whose slice of the active slot prefix is empty launches nothing.
+Contiguous variant blocks therefore leave a grid row idle while the
+prefix is short (2 variants in a capacity of 4 on a 2x2 mesh both sit in
+row 0); an interleaved layout would break the seed arithmetic above.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from grample_tpu_torch.metrics.psrf import convergence_moments, psrf_from_moments
+from grample_tpu_torch.ops.layout import kernel_stack
+from grample_tpu_torch.ops.sweep import (
+    advance_chains,
+    hash_block,
+    scale_tables,
+    to_device,
+    write_slots,
+)
+from grample_tpu_torch.sampler.chains import ChainGroup, _rb_indices
+
+VARIANT_AXIS = "variants"
+CHAIN_AXIS = "chains"
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainMesh:
+    """A ``(variants, chains)`` grid of devices: ``devices[vi][ci]``."""
+
+    devices: tuple
+
+    @property
+    def shape(self) -> dict:
+        return {VARIANT_AXIS: len(self.devices), CHAIN_AXIS: len(self.devices[0])}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+
+def chain_mesh(n_devices: Optional[int] = None, variant_ways: int = 0,
+               devices: Optional[Sequence] = None) -> ChainMesh:
+    """Build the ``(variants, chains)`` device mesh.
+
+    Without ``devices`` the mesh takes ``cuda:0 .. cuda:n-1``.  ``devices``
+    is an explicit list that may name one device several times (a virtual
+    mesh, see the module doc).  ``n_devices`` takes the first so many and
+    raises when there are fewer.  ``variant_ways`` splits the grid between
+    the axes; by default variants get the largest power of two ``vw`` with
+    ``vw * vw * 4 <= n`` (reference ``mesh.py:63-68``).
+    """
+    if devices is None:
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(d) for d in devices]
+    if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(f"a mesh of {n_devices} devices needs that many; "
+                             f"this machine has {len(devs)}")
+        devs = devs[:n_devices]
+    n = len(devs)
+    if n == 0:
+        raise ValueError("no CUDA device for a mesh: name the devices")
+    if variant_ways <= 0:
+        variant_ways = 1
+        while variant_ways * variant_ways * 4 <= n:
+            variant_ways *= 2
+    if n % variant_ways != 0:
+        raise ValueError(f"{n} devices not divisible by variant_ways={variant_ways}")
+    cways = n // variant_ways
+    return ChainMesh(tuple(tuple(devs[vi * cways:(vi + 1) * cways])
+                           for vi in range(variant_ways)))
+
+
+def shard_seed(seed: int, v0: int, block0: int) -> int:
+    """The int32 seed that makes a shard starting at variant ``v0`` and
+    chain block ``block0`` draw what the unsharded window seeded ``seed``
+    draws there (see the module doc)."""
+    x = (int(seed) + 65537 * int(v0) + 257 * int(block0)) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+@dataclasses.dataclass
+class Shard:
+    """One device's block of slots and chains."""
+
+    vi: int
+    ci: int
+    device: torch.device
+    v0: int  # first slot
+    c0: int  # first chain
+    state: torch.Tensor  # [n_local, c_local, V+1] int32
+    halves: torch.Tensor  # [n_local, 2, c_local, V+1, K] int32
+
+
+class ShardedChainGroup(ChainGroup):
+    """``ChainGroup`` whose tensors live in shards over a device mesh.
+
+    Drop-in for :class:`ChainGroup`: the engine, the adaptive controller
+    and the checkpoints are unchanged.  ``chains_per_variant`` must be a
+    multiple of the mesh's ``chains`` extent; the slot capacity is
+    rounded up to a multiple of its ``variants`` extent.  ``device`` is
+    accepted, so that one factory can build either class, and ignored:
+    the mesh names the devices.
+    """
+
+    def __init__(self, base_model, chains_per_variant: int, converge_window: int,
+                 device=None, *, mesh: Optional[ChainMesh] = None, **kw):
+        self.mesh = mesh or chain_mesh()
+        self.shards: List[Shard] = []
+        super().__init__(base_model, chains_per_variant, converge_window,
+                         self.mesh.devices[0][0], **kw)
+        cdim = self.mesh.shape[CHAIN_AXIS]
+        if self.cpv % cdim != 0:
+            raise ValueError(f"chains_per_variant={self.cpv} not divisible by mesh "
+                             f"chains axis {cdim}")
+        self.cb = hash_block(self.local_chains)
+
+    # ---- geometry --------------------------------------------------------
+    @property
+    def local_chains(self) -> int:
+        return self.cpv // self.mesh.shape[CHAIN_AXIS]
+
+    @property
+    def local_slots(self) -> int:
+        return self.slot_cap // self.mesh.shape[VARIANT_AXIS]
+
+    def _round_cap(self, slot_cap: int) -> int:
+        vdim = self.mesh.shape[VARIANT_AXIS]
+        return -(-max(slot_cap, 1) // vdim) * vdim
+
+    def _row(self, vi: int) -> List[Shard]:
+        cdim = self.mesh.shape[CHAIN_AXIS]
+        return self.shards[vi * cdim:(vi + 1) * cdim]
+
+    def active_shards(self):
+        """(shard, active slots, the row's sweep tensors cut to them) for
+        every shard that holds a slot of the active prefix."""
+        nact = max(1, self.num_variants)
+        for sh in self.shards:
+            na = min(nact - sh.v0, self.local_slots)
+            if na > 0:
+                kst = self.kstack[sh.vi][sh.device]
+                yield sh, na, {k: v[:na] for k, v in kst.items()}
+
+    # ---- the whole tensors, for the rare readers -------------------------
+    def _gather(self, name: str, chain_dim: int):
+        if not self.shards:
+            return None
+        rows = [torch.cat([getattr(sh, name).cpu() for sh in self._row(vi)], dim=chain_dim)
+                for vi in range(self.mesh.shape[VARIANT_AXIS])]
+        return torch.cat(rows, dim=0)
+
+    @property
+    def state(self):
+        """Host copy [Ncap, C, V+1] of every shard's chain states."""
+        return self._gather("state", 1)
+
+    @property
+    def halves(self):
+        """Host copy [Ncap, 2, C, V+1, K] of every shard's window halves."""
+        return self._gather("halves", 2)
+
+    def _slot_state(self, slot: int) -> np.ndarray:
+        vi, loc = divmod(slot, self.local_slots)
+        return np.concatenate([sh.state[loc].cpu().numpy() for sh in self._row(vi)])
+
+    # ---- placement -------------------------------------------------------
+    def _place(self, stack: dict, state: np.ndarray) -> None:
+        old = self.state
+        if old is not None:
+            n = min(old.shape[0], self.slot_cap)
+            state[:n] = old[:n].numpy()
+        self._scatter(torch.as_tensor(state), None)
+        nl = self.local_slots
+        self.kstack = []
+        for vi, row in enumerate(self.mesh.devices):
+            kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()})
+            self.kstack.append({dev: to_device(kst, dev) for dev in dict.fromkeys(row)})
+
+    def _scatter(self, state, halves) -> None:
+        """Rebuild the shards from whole tensors (any device); ``halves``
+        None starts the window halves at zero."""
+        nl, cl = self.local_slots, self.local_chains
+        self.shards = []
+        for vi, row in enumerate(self.mesh.devices):
+            for ci, dev in enumerate(row):
+                rows, cols = slice(vi * nl, (vi + 1) * nl), slice(ci * cl, (ci + 1) * cl)
+                hv = (torch.zeros((nl, 2, cl, self.v1, self.kdim), dtype=torch.int32, device=dev)
+                      if halves is None else halves[rows, :, cols].to(dev).contiguous())
+                self.shards.append(Shard(vi, ci, dev, vi * nl, ci * cl,
+                                         state[rows, cols].to(dev).contiguous(), hv))
+
+    def _write_slots(self, slots, stack, state: np.ndarray) -> None:
+        nl, cl = self.local_slots, self.local_chains
+        for vi in range(self.mesh.shape[VARIANT_AXIS]):
+            sel = [i for i, s in enumerate(slots) if s // nl == vi]
+            if not sel:
+                continue
+            loc = [slots[i] - vi * nl for i in sel]
+            if stack is not None:
+                fresh = kernel_stack({k: v[sel] for k, v in stack.items()})
+                for dev, kst in self.kstack[vi].items():
+                    write_slots(kst, loc, to_device(fresh, dev))
+            for sh in self._row(vi):
+                sh.state[loc] = torch.as_tensor(
+                    np.ascontiguousarray(state[sel][:, sh.c0:sh.c0 + cl]), device=sh.device)
+
+    def restore_device_state(self, state, halves):
+        """Checkpointed tensors [Ncap, ...] (any device or numpy) go back
+        into shards on the mesh."""
+        state = torch.as_tensor(state, dtype=torch.int32)
+        halves = torch.as_tensor(halves, dtype=torch.int32)
+        if state.shape[0] != self.slot_cap or halves.shape[0] != self.slot_cap:
+            raise ValueError(f"tensors of {state.shape[0]} slots for a group of "
+                             f"{self.slot_cap}")
+        self._scatter(state, halves)
+
+    # ---- advancing -------------------------------------------------------
+    def _advance_fn(self, sweeps: int, half: int, count: bool, fresh: bool = False):
+        seed = self._next_seed()
+        if fresh:
+            for sh in self.shards:
+                sh.halves.zero_()
+        for sh, na, kst in self.active_shards():
+            st, hv = advance_chains(
+                kst, sh.state[:na], sh.halves[:na],
+                shard_seed(seed, sh.v0, sh.c0 // self.cb),
+                sweeps, half, count=count, cb=self.cb,
+            )
+            sh.state[:na] = st
+            sh.halves[:na] = hv
+
+    def warmup(self):
+        if self.slot_cap == 0:
+            return
+        step = self._step
+        saved = [(sh.state.clone(), sh.halves.clone()) for sh in self.shards]
+        self._advance_fn(1, 0, count=True)
+        self._advance_fn(1, 1, count=False)
+        for sh, (state, halves) in zip(self.shards, saved):
+            sh.halves.sum().item()  # sync: wait out first-launch overheads
+            sh.state, sh.halves = state, halves
+        self._step = step
+
+    def _scaled(self, kstack, beta: float):
+        return [{dev: scale_tables(kst, beta) for dev, kst in row.items()}
+                for row in kstack]
+
+    def _window_delta(self):
+        """[(first slot, counts summed over the shard's chains
+        [n_active, V+1, K] int64, on the shard's device)]."""
+        return [(sh.v0, sh.halves[:na].sum(dim=(1, 2)))
+                for sh, na, _ in self.active_shards()]
+
+    def _fold(self, delta, nact: int) -> None:
+        for v0, d in delta:
+            self.totals[v0:v0 + d.shape[0]] += d.cpu().numpy()
+
+    # ---- estimation ------------------------------------------------------
+    def _rb_index_rows(self, states, slots, rest, strides) -> np.ndarray:
+        if states is not None:  # another group's chains
+            return super()._rb_index_rows(states, slots, rest, strides)
+        nl, cl = self.local_slots, self.local_chains
+        out = np.empty((len(slots), self.cpv), dtype=np.int64)
+        for vi in range(self.mesh.shape[VARIANT_AXIS]):
+            sel = np.nonzero(slots // nl == vi)[0]
+            if not sel.size:
+                continue
+            for sh in self._row(vi):
+                out[sel, sh.c0:sh.c0 + cl] = _rb_indices(
+                    sh.state,
+                    torch.as_tensor(slots[sel] - sh.v0, device=sh.device),
+                    torch.as_tensor(rest[sel], device=sh.device),
+                    torch.as_tensor(strides[sel], device=sh.device),
+                ).cpu().numpy()
+        return out
+
+    def moments(self, merged: np.ndarray, measure: str = "hellinger") -> tuple:
+        """The PSRF moments ``(sum_w [V], sum_b [V], m)`` of all active
+        chains: each shard's own (``metrics.psrf.convergence_moments``, on
+        its device), summed on the host, where the reference reduces with
+        ``psum`` over both axes (``mesh.py:201-203``)."""
+        v = self.caps.num_vars
+        per_shard = []
+        for sh, na, _ in self.active_shards():
+            dev = sh.device
+            h = sh.halves[:na, :, :, :v, :]  # [na, 2, c_local, V, K]
+            m_chains = na * self.local_chains
+            per_shard.append(convergence_moments(
+                h[:, 0].reshape(m_chains, v, self.kdim),
+                h[:, 1].reshape(m_chains, v, self.kdim),
+                torch.as_tensor(merged, dtype=torch.float32, device=dev),
+                torch.as_tensor(self.base.cards, dtype=torch.int32, device=dev),
+                torch.ones(m_chains, dtype=torch.bool, device=dev),
+                measure=measure,
+            ))
+        return tuple(torch.stack([mo[i].cpu() for mo in per_shard]).sum(dim=0)
+                     for i in range(3))
+
+    def convergence(self, measure: str = "hellinger",
+                    merged: Optional[np.ndarray] = None) -> np.ndarray:
+        if merged is None:
+            merged = self.merged_marginals()
+        converged = (self.base.fixed >= 0) | self.collapsed_any()
+        vals = psrf_from_moments(*self.moments(merged, measure), float(self.cw),
+                                 torch.as_tensor(converged))
+        return vals.numpy().astype(np.float64)

@@ -24,6 +24,13 @@ group's aux group takes RB donor snapshots from its main group's states
 (seed, step) (``window_seed``), as the reference's ``fold_in(key, step)``,
 so a checkpoint that stores ``_step`` resumes bit for bit.
 
+Everything that touches the device tensors goes through a few small
+methods (``_place``, ``_write_slots``, ``_advance_fn``, ``_window_delta``,
+``_fold``, ``_slot_state``, ``_rb_index_rows``, ``_scaled``, ``warmup``,
+``restore_device_state``, ``convergence``): ``parallel.mesh.
+ShardedChainGroup`` replaces exactly those to keep the tensors in shards
+on several devices.
+
 Not ported: the reference's TPU workarounds (slot chunking, counted
 sub-windows, the compile-error fallback).
 """
@@ -106,6 +113,11 @@ class ChainGroup:
     #: the merged estimate re-equilibrates them (reference ``:144-148``)
     adapt_init = "redraw"
 
+    #: device tensors, built by ``_place`` at the first restack
+    kstack = None  # kernel-order sweep tensors [Ncap, ...]
+    state = None  # [Ncap, C, V+1] int32
+    halves = None  # [Ncap, 2, C, V+1, K] int32
+
     def __init__(
         self,
         base_model: DiscreteModel,
@@ -143,9 +155,6 @@ class ChainGroup:
         self.variants: List[DiscreteModel] = []
         self.encs: List[EncodedModel] = []
         self.slot_cap = 0
-        self.kstack = None  # kernel-order sweep tensors [Ncap, ...]
-        self.state = None  # [Ncap, C, V+1] int32
-        self.halves = None  # [Ncap, 2, C, V+1, K] int32
         self.totals: Optional[np.ndarray] = None  # host f64 [Ncap, V+1, K]
         self.total_samples = 0  # counted site updates across all chains
         self.total_sweeps = 0
@@ -174,6 +183,12 @@ class ChainGroup:
     @property
     def num_chains(self) -> int:
         return self.num_variants * self.cpv
+
+    @property
+    def local_chains(self) -> int:
+        """Chains of one variant that one launch advances; the hash lane
+        width ``cb`` divides it."""
+        return self.cpv
 
     @property
     def v1(self) -> int:
@@ -250,8 +265,12 @@ class ChainGroup:
         base_col = self.base.collapsed[:v]
         for slot, mv in enumerate(self.variants):
             if not (mv.collapsed[:v] & ~base_col).any():
-                return self.state[slot].cpu().numpy()
+                return self._slot_state(slot)
         return None
+
+    def _slot_state(self, slot: int) -> np.ndarray:
+        """Host copy [C, V+1] of one slot's chain states."""
+        return self.state[slot].cpu().numpy()
 
     def _encode_grown(self, model: DiscreteModel) -> tuple:
         """``encode_model`` with caps growth; returns (enc, grew).
@@ -282,18 +301,32 @@ class ChainGroup:
         """Rebuild stacked device arrays, preserving live slot state."""
         self.flush()  # pending deltas are shaped for the OLD slot capacity
         if new_slot_cap is not None:
-            self.slot_cap = new_slot_cap
+            self.slot_cap = self._round_cap(new_slot_cap)
         if self.slot_cap == 0:
             return
         # exact variant caps need not fit the base model: grow them
         base_enc = self.encs[0] if self.encs else self._encode_grown(self.base)[0]
         padded = list(self.encs) + [base_enc] * (self.slot_cap - len(self.encs))
-        self.kstack = sweep_tensors(stack_variants(padded), self.device)
+        self._place(stack_variants(padded),
+                    np.stack([self._host_init_state(enc) for enc in padded]))
+        old_tot = self.totals
+        self.totals = np.zeros((self.slot_cap, self.v1, self.kdim), dtype=np.float64)
+        if old_tot is not None:
+            n = min(old_tot.shape[0], self.slot_cap)
+            self.totals[:n] = old_tot[:n]
 
-        new_state = torch.as_tensor(
-            np.stack([self._host_init_state(enc) for enc in padded]),
-            device=self.device,
-        )
+    def _round_cap(self, slot_cap: int) -> int:
+        """The slot capacity a request for ``slot_cap`` slots gets."""
+        return slot_cap
+
+    def _place(self, stack: dict, state: np.ndarray) -> None:
+        """Put a restack's tensors on the device: the sweep tensors of the
+        stacked encoding ``stack`` (``stack_variants`` output, leading
+        axis Ncap) and the fresh states ``state`` [Ncap, C, V+1], over
+        which the slots held so far keep their states; the window halves
+        start at zero."""
+        self.kstack = sweep_tensors(stack, self.device)
+        new_state = torch.as_tensor(state, device=self.device)
         if self.state is not None:
             n = min(self.state.shape[0], self.slot_cap)
             new_state[:n] = self.state[:n]
@@ -302,11 +335,16 @@ class ChainGroup:
             (self.slot_cap, 2, self.cpv, self.v1, self.kdim),
             dtype=torch.int32, device=self.device,
         )
-        old_tot = self.totals
-        self.totals = np.zeros((self.slot_cap, self.v1, self.kdim), dtype=np.float64)
-        if old_tot is not None:
-            n = min(old_tot.shape[0], self.slot_cap)
-            self.totals[:n] = old_tot[:n]
+
+    def _write_slots(self, slots: List[int], stack: Optional[dict],
+                     state: np.ndarray) -> None:
+        """Write new variants into free slots ``slots``: their stacked
+        encoding ``stack`` (``stack_variants`` output; None after a
+        restack, which placed them already) and their states ``state``
+        [n, C, V+1]."""
+        if stack is not None:
+            write_slots(self.kstack, slots, sweep_tensors(stack, self.device))
+        self.state[slots] = torch.as_tensor(state, device=self.device)
 
     def add_variant(self, model: DiscreteModel, burn_sweeps: int = 0,
                     warm_marginals: Optional[np.ndarray] = None,
@@ -342,26 +380,28 @@ class ChainGroup:
         slots = list(range(slot0, slot0 + len(models)))
         self.variants.extend(models)
         self.encs.extend(new_encs)
-        if grew_any or slots[-1] >= self.slot_cap:
+        restack = grew_any or slots[-1] >= self.slot_cap
+        if restack:
             self._restack(max(self.slot_cap, _next_pow2(slots[-1] + 1)))
-        else:
-            write_slots(self.kstack, slots,
-                        sweep_tensors(stack_variants(new_encs), self.device))
         st = np.stack([
             self._transplant_states(enc, np.asarray(init_states))
             if init_states is not None
             else self._host_init_state(enc, warm_marginals)
             for enc in new_encs
         ])
-        self.state[slots] = torch.as_tensor(st, device=self.device)
+        self._write_slots(
+            slots, None if restack else stack_variants(new_encs), st)
         self.totals[slots] = 0.0
         if burn_sweeps > 0:
             self.burn(burn_sweeps)
         return slots
 
     # ---- advancing -------------------------------------------------------
-    def _advance_fn(self, sweeps: int, half: int, count: bool):
-        """Advance the ACTIVE slot prefix by one window."""
+    def _advance_fn(self, sweeps: int, half: int, count: bool, fresh: bool = False):
+        """Advance the ACTIVE slot prefix by one window; ``fresh`` zeroes
+        the window halves first."""
+        if fresh:
+            self.halves.zero_()
         nact = max(1, self.num_variants)
         st, hv = advance_chains(
             {k: v[:nact] for k, v in self.kstack.items()},
@@ -412,10 +452,14 @@ class ChainGroup:
                 beta = (i + 1.0) / stages
                 n = per + (sweeps - per * stages if i == stages - 1 else 0)
                 # scale only the log-potential tables; the rest is structural
-                self.kstack = stack0 if beta >= 1.0 else scale_tables(stack0, beta)
+                self.kstack = stack0 if beta >= 1.0 else self._scaled(stack0, beta)
                 self.burn(n)
         finally:
             self.kstack = stack0
+
+    def _scaled(self, kstack, beta: float):
+        """``kstack`` with its log tables times ``beta``."""
+        return scale_tables(kstack, beta)
 
     def advance(self, sweeps: Optional[int] = None, defer: bool = False) -> int:
         """Advance all chains one convergence window (counted).
@@ -427,9 +471,8 @@ class ChainGroup:
         launch many windows back to back without a host sync.
         """
         sweeps = self.cw if sweeps is None else int(sweeps)
-        self.halves.zero_()
-        self._advance_fn(sweeps, sweeps // 2, count=True)
-        self._pending.append((self.halves.sum(dim=(1, 2)), self.num_variants))
+        self._advance_fn(sweeps, sweeps // 2, count=True, fresh=True)
+        self._pending.append((self._window_delta(), self.num_variants))
         self.total_sweeps += sweeps
         # counted sites are deterministic: every grouped (free) var of an
         # active variant counts once per sweep per chain
@@ -444,10 +487,18 @@ class ChainGroup:
     def flush(self) -> None:
         """Fold all pending window deltas into the host totals (one sync)."""
         for delta, nact in self._pending:
-            d = delta.cpu().numpy().astype(np.float64)
-            d[nact:] = 0.0
-            self.totals += d
+            self._fold(delta, nact)
         self._pending.clear()
+
+    def _window_delta(self):
+        """The last window's counts summed over chains, left on the device."""
+        return self.halves.sum(dim=(1, 2))  # [Ncap, V+1, K] int64
+
+    def _fold(self, delta, nact: int) -> None:
+        """Add one ``_window_delta`` of ``nact`` active slots to ``totals``."""
+        d = delta.cpu().numpy().astype(np.float64)
+        d[nact:] = 0.0
+        self.totals += d
 
     def restore_device_state(self, state, halves):
         """Place checkpointed chain state [Ncap, C, V+1] and window halves
@@ -484,7 +535,7 @@ class ChainGroup:
         if not own:
             return
         donors = [(p, int(cv)) for cv in np.nonzero(col_any)[0] for p in plain]
-        probs = self._rb_snapshot(self.state, own + donors)
+        probs = self._rb_snapshot(None, own + donors)
         for key, pr in zip(own, probs[: len(own)]):
             if key in self._rb_sum:
                 self._rb_sum[key] = self._rb_sum[key] * RB_DECAY + pr
@@ -534,7 +585,7 @@ class ChainGroup:
     def _rb_snapshot(self, states, pairs) -> List[np.ndarray]:
         """One RB snapshot per (slot, var) pair: the normalized base
         conditional of ``var`` averaged over the chains of slot ``slot``
-        of ``states`` [N, C, V+1]."""
+        of ``states`` [N, C, V+1] (None: the group's own chains)."""
         infos = []
         for _slot, var in pairs:
             if var not in self._rb_cond:
@@ -547,18 +598,25 @@ class ChainGroup:
         for i, (r, s, _c) in enumerate(infos):
             rest[i, : r.size] = r
             strides[i, : r.size] = s
-        dev = states.device
-        idx = _rb_indices(
-            states,
-            torch.as_tensor(np.array([s for s, _ in pairs]), device=dev),
-            torch.as_tensor(rest, device=dev),
-            torch.as_tensor(strides, device=dev),
-        ).cpu().numpy()
+        idx = self._rb_index_rows(states, np.array([s for s, _ in pairs]), rest, strides)
         out = []
         for (_r, _s, cond), row in zip(infos, idx):
             counts = np.bincount(row, minlength=cond.shape[0]).astype(np.float64)
             out.append(counts @ cond / counts.sum())
         return out
+
+    def _rb_index_rows(self, states, slots: np.ndarray, rest: np.ndarray,
+                       strides: np.ndarray) -> np.ndarray:
+        """Host [n, C] blanket indices (``_rb_indices``) of slots ``slots``
+        of ``states`` (None: the group's own chains)."""
+        states = self.state if states is None else states
+        dev = states.device
+        return _rb_indices(
+            states,
+            torch.as_tensor(slots, device=dev),
+            torch.as_tensor(rest, device=dev),
+            torch.as_tensor(strides, device=dev),
+        ).cpu().numpy()
 
     def collapsed_any(self) -> np.ndarray:
         """[V] bool: collapsed in any active variant."""

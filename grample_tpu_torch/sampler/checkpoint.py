@@ -11,6 +11,15 @@ themselves, serialized structurally (not pickled).
 The port writes its int32 window halves as they are; the reference
 writes float32 halves holding whole counts.  Both load here
 (``convert.chains_from_reference``).
+
+A group sharded over a device mesh (``parallel.mesh``) saves through the
+same code, gathered on the host, and a snapshot loads into any group of
+the same chain shapes: sharded or not, on any mesh.  A mesh may round
+the slot capacity up; the snapshot's tensors are then padded with the
+group's own fresh slots.  The port also records the hash lane width
+``cb``, which a resumed group adopts where it divides the chains one
+launch advances, so that the run continues with the same draws on
+another mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import tempfile
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from grample_tpu_torch.convert import chains_from_reference
 from grample_tpu_torch.pgm.discrete import DiscreteModel, Factor
@@ -108,6 +118,7 @@ def _save_one(path: str, group: ChainGroup, cfg=None, runtime: float = 0.0,
         "version": FORMAT_VERSION,
         "cpv": group.cpv,
         "cw": group.cw,
+        "cb": group.cb,
         "seed": group.seed,
         "slot_cap": group.slot_cap,
         "step": group._step,
@@ -217,12 +228,20 @@ def _load_one(path: str, base_model: DiscreteModel, make_group,
         raise ValueError("group factory ignored the checkpoint's shape keywords")
     group.add_variants(snapshot_variants(meta))
     group.reserve(meta.get("slot_cap", 0))
-    state, halves = chains_from_reference(data["state"], data["halves"], device)
-    group.restore_device_state(state, halves)
+    # staged on the host: the group places its tensors on its device(s)
+    state, halves = chains_from_reference(data["state"], data["halves"], "cpu")
     n = state.shape[0]
-    if group.slot_cap != n:
+    if group.slot_cap < n:
         raise ValueError(f"snapshot holds {n} slots, the group {group.slot_cap}")
-    group.totals[:] = np.asarray(data["totals"], dtype=np.float64)
+    if group.slot_cap > n:
+        # a mesh rounded the capacity up (reference ``checkpoint.py:229``):
+        # the padding slots keep the group's fresh states and empty windows
+        state = torch.cat([state, group.state[n:].cpu()])
+        halves = torch.cat([halves, halves.new_zeros((group.slot_cap - n, *halves.shape[1:]))])
+    group.restore_device_state(state, halves)
+    group.totals[:n] = np.asarray(data["totals"], dtype=np.float64)
+    if meta.get("cb") and group.local_chains % meta["cb"] == 0:
+        group.cb = int(meta["cb"])
     group._step = meta["step"]
     group.total_samples = meta["total_samples"]
     group.total_sweeps = meta["total_sweeps"]

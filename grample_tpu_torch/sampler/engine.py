@@ -23,8 +23,9 @@ Reference flag units are single-site samples; the engine works in
 samples ≈ ``burnin / V`` sweeps, and the default burnin 2000·V gives
 2000 sweeps.
 
-Device meshes and multi-process runs are a later slice of the port
-(ROADMAP.md A11).
+``mesh`` shards the chains over several GPUs (``parallel.mesh``), all
+driven by this one process; a split group is not used under a mesh.
+Multi-host runs are not ported (ROADMAP.md A11b).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from grample_tpu_torch.metrics import ErrorSuite, error_suite
 from grample_tpu_torch.metrics.divergences import pad_marginals
@@ -111,8 +113,12 @@ class EngineConfig:
     reserve_slots: int = 0
     # split execution for adaptive runs: "auto" = a SplitChainGroup when
     # the sweep takes the plain caps but refuses the collapse-headroom
-    # caps (see _want_split); "on"/"off" force it
+    # caps (see _want_split); "on"/"off" force it.  Ignored under a mesh.
     split_group: str = "auto"
+    # device mesh: "off" = one device; "auto" = shard over every GPU when
+    # there are several; "VxC" (e.g. "2x4") = an explicit (variants,
+    # chains) grid, which needs V*C devices
+    mesh: str = "off"
 
     def resolve_seed(self) -> int:
         if self.seed >= 1:
@@ -147,7 +153,10 @@ class Engine:
         cfg: EngineConfig,
         log: Callable[[str], None] = print,
         monitor=None,
+        devices=None,
     ):
+        """``devices`` names the mesh's devices explicitly; one device may
+        be named several times (a virtual mesh, see ``parallel.mesh``)."""
         if cfg.sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler: {cfg.sampler}")
         if cfg.sampler != "adaptive" and cfg.chain_adds != 1:
@@ -159,9 +168,14 @@ class Engine:
             raise ValueError(f"unknown budget mode {cfg.budget!r}")
         if cfg.experiment and not cfg.trace_path:
             raise ValueError("experiment mode requires a trace file")
+        if cfg.mesh not in ("", "off", "auto"):
+            vways, _, cways = cfg.mesh.partition("x")
+            if not (vways.isdigit() and cways.isdigit() and int(vways) and int(cways)):
+                raise ValueError(f"unknown mesh {cfg.mesh!r}: off | auto | VxC")
         self.cfg = cfg
         self.log = log
         self.monitor = monitor
+        self.devices = devices
         self.trace_fh = None
         if cfg.trace_path:
             self.trace_fh = open(cfg.trace_path, "w")
@@ -560,13 +574,20 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _group_factory(self, cfg: EngineConfig):
-        """Factory for fresh runs and resume: a ``SplitChainGroup`` for
-        adaptive runs that ``_want_split``, else a ``ChainGroup``.  The
+        """Factory for fresh runs and resume: a ``ShardedChainGroup`` under
+        a mesh (reference ``engine.py:603-641``), else a ``SplitChainGroup``
+        for adaptive runs that ``_want_split``, else a ``ChainGroup``.  The
         caller's keywords (the shapes a resume restores) win."""
 
         def make(model, **kw):
             kw.setdefault("max_variants", cfg.max_variants)
             kw.setdefault("device", cfg.device)
+            mesh = self._mesh(cfg)
+            if mesh is not None:
+                from grample_tpu_torch.parallel.mesh import ShardedChainGroup
+
+                self.log(f"device mesh: {mesh.shape} over {mesh.size} devices")
+                return ShardedChainGroup(model, mesh=mesh, **kw)
             if cfg.sampler == "adaptive" and self._want_split(cfg, model):
                 self.log("split group: plain slots on plain caps + "
                          "collapse slots on aux caps")
@@ -575,6 +596,25 @@ class Engine:
             return ChainGroup(model, **kw)
 
         return make
+
+    def _mesh(self, cfg: EngineConfig):
+        """The device mesh ``cfg.mesh`` asks for, or None: ``auto`` shards
+        when there are several devices, ``VxC`` needs V*C of them.  The
+        devices are the engine's explicit list, else every GPU, else (for
+        a CPU run) the one CPU."""
+        if cfg.mesh in ("", "off"):
+            return None
+        from grample_tpu_torch.parallel.mesh import chain_mesh
+
+        devices = self.devices
+        if devices is None and torch.device(cfg.device).type != "cuda":
+            devices = [cfg.device]
+        if cfg.mesh == "auto":
+            n = torch.cuda.device_count() if devices is None else len(devices)
+            return chain_mesh(devices=devices) if n > 1 else None
+        vways, _, cways = cfg.mesh.partition("x")
+        return chain_mesh(n_devices=int(vways) * int(cways), variant_ways=int(vways),
+                          devices=devices)
 
     def _resume_factory(self, cfg: EngineConfig):
         """Factory for a resumed non-split snapshot.  A ``-s collapsed``

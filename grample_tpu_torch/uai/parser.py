@@ -16,9 +16,11 @@ Format notes (see http://www.cs.huji.ac.il/project/PASCAL/fileFormat.php):
 Unlike the reference's token-at-a-time FieldReader, parsing here is
 vectorized: the numeric tail of a model file is bulk-parsed with
 ``numpy.fromstring``-style splitting, which matters for the larger UAI
-instances and matches the framework's array-first design.  This is the
-portable tokenizer of ``grample_tpu.uai.parser``; the JAX package's C++
-fast path is not carried over.
+instances and matches the framework's array-first design.  After the
+TYPE token a model file is purely numeric, so where the native tier is
+built (``grample_tpu_torch.native.tokenize_f64``) one C++ ``strtod`` pass
+replaces the per-token Python parse; the portable tokenizer stays behind
+it and gives the same results.
 """
 
 from __future__ import annotations
@@ -100,13 +102,68 @@ class _Tokens:
         return arr
 
 
-def parse_model(text: str) -> DiscreteModel:
-    """Parse a UAI model file (reference ``UAIReader.ReadModel``)."""
+class _NumCursor:
+    """Token cursor over a pre-parsed numeric array.
+
+    The native fast path: everything after a model file's TYPE token is
+    numeric, so one C++ strtod pass (``native.tokenize_f64``) replaces
+    per-token Python parsing.  Exposes the same take_* interface as
+    :class:`_Tokens`; f64 holds every UAI integer exactly (table sizes
+    are capped at 2^23 << 2^53).
+    """
+
+    def __init__(self, arr: np.ndarray):
+        self.arr = arr
+        self.pos = 0
+
+    @property
+    def remaining(self) -> int:
+        return self.arr.size - self.pos
+
+    def take_float(self) -> float:
+        if self.pos >= self.arr.size:
+            raise UAIParseError("unexpected end of file")
+        v = float(self.arr[self.pos])
+        self.pos += 1
+        return v
+
+    def take_int(self) -> int:
+        v = self.take_float()
+        i = int(v)
+        if i != v:
+            raise UAIParseError(f"expected int, got {v!r}")
+        return i
+
+    def take_floats(self, n: int) -> np.ndarray:
+        if self.remaining < n:
+            raise UAIParseError(f"expected {n} floats, found {self.remaining}")
+        out = self.arr[self.pos : self.pos + n].copy()
+        self.pos += n
+        return out
+
+
+def parse_model(text: str, native: bool = True) -> DiscreteModel:
+    """Parse a UAI model file (reference ``UAIReader.ReadModel``);
+    ``native=False`` takes the portable tokenizer only."""
     if len(text) < 15:
         raise UAIParseError(f"invalid data buffer: len={len(text)} (<15)")
     clean, nlines = preprocess(text)
     if nlines < 1:
         raise UAIParseError("no lines found in file")
+
+    # native fast path; any parse failure re-runs the portable path for
+    # exact error-message semantics: numpy parsing stays the arbiter
+    parts = clean.split(None, 1)
+    if native and len(parts) == 2 and parts[0] in (BAYES, MARKOV):
+        from grample_tpu_torch.native import tokenize_f64
+
+        raw = parts[1].encode()
+        nums = tokenize_f64(raw, len(raw) // 2 + 1)
+        if nums is not None and nums.size >= 5:
+            try:
+                return _parse_model_body(_NumCursor(nums), parts[0])
+            except UAIParseError:
+                pass
 
     tok = _Tokens(clean)
     if len(tok) < 6:
@@ -119,7 +176,7 @@ def parse_model(text: str) -> DiscreteModel:
 
 
 def _parse_model_body(tok, mtype: str) -> DiscreteModel:
-    """Preamble + tables from a :class:`_Tokens` cursor."""
+    """Preamble + tables from any take_* cursor (_Tokens or _NumCursor)."""
     var_count = tok.take_int()
     if var_count < 1:
         raise UAIParseError(f"invalid variable count: {var_count}")

@@ -1,7 +1,9 @@
 """The CUDA sweep kernel on the card, against its plain PyTorch version,
 at the plain models' widths, at the wide local tables of collapse
 variants (64 to 1024 rows, scopes up to 11) and on collapse-headroom
-encodings; the adaptive sampler and kill-and-resume on the card.
+encodings; the adaptive sampler and kill-and-resume on the card; groups
+sharded over a virtual mesh of the card (and over two cards where the
+machine has them).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on a GPU machine that has
@@ -19,6 +21,7 @@ import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu_torch.metrics import hellinger
 from grample_tpu_torch.ops import gibbs_cuda, sweep
 from grample_tpu_torch.ops.gibbs_torch import window_plain
+from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
 from grample_tpu_torch.pgm.exact import exact_marginals
 from grample_tpu_torch.sampler.adaptive import adapt_step
 from grample_tpu_torch.sampler.chains import ChainGroup
@@ -280,3 +283,80 @@ def test_kill_and_resume_bit_exact_on_card(cuda_device, tmp_path):
     assert torch.equal(a.state, b2.state) and torch.equal(a.halves, b2.halves)
     np.testing.assert_array_equal(a.totals, b2.totals)
     assert (a.total_samples, a.total_sweeps) == (b2.total_samples, b2.total_sweeps)
+
+
+# ---- chains sharded over a mesh ----------------------------------------------
+
+def _mesh_pair(m, device, mesh, cpv, **kw):
+    g = ShardedChainGroup(m, cpv, 20, seed=9, mesh=mesh, **kw)
+    p = ChainGroup(m, cpv, 20, device, seed=9, **kw)
+    p.cb = g.cb
+    return g, p
+
+
+def _assert_shards_equal(g, p):
+    assert torch.equal(g.state, p.state.cpu()) and torch.equal(g.halves, p.halves.cpu())
+    np.testing.assert_array_equal(g.totals, p.totals)
+    np.testing.assert_allclose(g.convergence(), p.convergence(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("cpv", [4096, 65536])
+def test_sharded_equals_unsharded_on_card(cuda_device, shape, cpv):
+    """A group sharded over a virtual mesh of the card equals the unsharded
+    group with the same hash width bit for bit, in both kernel forms (the
+    small shards launch site-parallel, the large ones a thread per chain);
+    every shard launches the kernel."""
+    m = torch_models.build(port_pgm, "grid4_evid")
+    mesh = chain_mesh(variant_ways=shape[0], devices=[cuda_device] * (shape[0] * shape[1]))
+    g, p = _mesh_pair(m, cuda_device, mesh, cpv, collapse_headroom=True)
+    before = gibbs_cuda.gibbs_window.launches
+    for x in (g, p):
+        x.reserve(4)
+        x.add_variants([m, m, collapse_var(m, 6)[0]])
+        x.burn_annealed(12, stages=3)
+        x.advance()
+        x.rb_accumulate()
+        x.add_variant(collapse_var(m, 9)[0], burn_sweeps=2, init_states=x.plain_slot_states())
+        x.advance(defer=True)
+        x.flush()
+    assert gibbs_cuda.gibbs_window.launches == before + 6 * (shape[0] * shape[1] + 1)
+    _assert_shards_equal(g, p)
+    np.testing.assert_array_equal(g.merged_marginals(), p.merged_marginals())
+
+
+def test_sharded_checkpoint_crosses_meshes_on_card(cuda_device, tmp_path):
+    m = torch_models.build(port_pgm, "grid4_evid")
+    g, p = _mesh_pair(m, cuda_device, chain_mesh(variant_ways=2, devices=[cuda_device] * 4), 8192)
+    for x in (g, p):
+        x.add_variants([m, m])
+        x.burn(10)
+        x.advance()
+    path = str(tmp_path / "mesh.npz")
+    save_checkpoint(path, g)
+    b, _ = load_checkpoint(path, m, device=cuda_device, make_group=lambda model, **kw:
+                           ShardedChainGroup(model, mesh=chain_mesh(
+                               variant_ways=1, devices=[cuda_device] * 4), **kw))
+    u, _ = load_checkpoint(path, m, device=cuda_device)
+    assert b.cb == u.cb == g.cb and not isinstance(u, ShardedChainGroup)
+    for x in (g, p, b, u):
+        x.advance()
+    for x in (g, b):
+        _assert_shards_equal(x, p)
+    assert torch.equal(u.state, p.state) and torch.equal(u.halves, p.halves)
+
+
+def test_sharded_over_two_cards(cuda_device):
+    """On a machine with two cards: one shard on each, equal to the
+    unsharded group (each card gets the kernel's shared-memory attribute
+    at its own launches)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    m = _long_chain()  # lists above 48 KB: the attribute matters
+    g, p = _mesh_pair(m, cuda_device, chain_mesh(n_devices=2), 2048)
+    assert [sh.device.index for sh in g.shards] == [0, 1]
+    for x in (g, p):
+        x.add_variants([m, m])
+        x.burn(3)
+        x.advance()
+    _assert_shards_equal(g, p)

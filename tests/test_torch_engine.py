@@ -113,20 +113,12 @@ def test_maxiters_and_budget_modes(tmp_path, budget):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "auto"], "A11"),
-    (["--distributed"], "A11"),
+    (["--distributed"], "A11b"),
 ])
 def test_unported_options_raise(tmp_path, argv, item):
     path, _ = _write_net(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["sample", "-m", path, "--device", "cpu", *argv])
-
-
-@pytest.mark.parametrize("command,item", [("dot", "A12")])
-def test_unported_commands_raise(tmp_path, command, item):
-    path, _ = _write_net(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([command, "-m", path])
 
 
 def test_experiment_needs_trace(tmp_path):
