@@ -39,6 +39,17 @@ non-zero:
      and held against the group that was never saved; host seconds of a
      flush and of the PSRF moment sum.  A virtual mesh's times say nothing
      about scaling;
+  3e. the torch-ops sweep route (``ops.gibbs_bank``, which takes what the
+     kernel's gate refuses) against the kernel: the 8 collapse variants of
+     3b encoded twice, dense through the CUDA kernel and all-gather (every
+     incidence in the flat-table gather bank) through ``window_ops`` on the
+     card, same seed and state, one counted sweep: both banks are summed
+     in factor order, so the bound is 3's (a draw on a CDF boundary can
+     flip between the kernel's expf and ``torch.exp``), the number that
+     differ is printed, count totals must be exact and counts equal where
+     the states agree; on the dense encoding ``window_ops`` must equal the
+     plain version exactly; both routes timed on an 8-sweep counted
+     window (printed with phase 5's rows);
   4. the main path through the CLI: ``sample -s simple`` on a 4x4 grid
      with evidence and an exact ``.MAR``, 2 x 131072 chains; the MAR it
      writes must be within 0.005 max Hellinger of the exact marginals
@@ -69,6 +80,18 @@ non-zero:
      grid, 2e6 single-site samples, within 0.02 max Hellinger of exact,
      its samples/s printed with the host CPU's name; the UAI parser's
      native tokenizer against the portable one;
+  4h. the Promedus-shaped net at the single adaptive group's headroom caps,
+     which are all-gather (the kernel's gate refuses them): ``sample -s
+     adaptive -c 2 --vchains 8192 -a 4 --split-group off`` through the CLI,
+     and the same under a 2x2 virtual mesh through the engine, 20 s each
+     (burn-in 10·V, window 5·V): no raise, the ``sweep route: torch ops``
+     line, no kernel launch, at least one adapt step and one collapsed var,
+     max Hellinger against 5b's 30 s ``-s simple`` marginals within
+     ``OPS_HELL_BOUND``; counted site-samples/s, windows by route, peak
+     memory (run after 5b, whose marginals it is held against);
+  4i. ``sample -s simple`` on one 12-var binary factor plus unaries (a
+     mixed encoding: the wide factor in the gather bank, the unaries
+     dense) against exact marginals, the bound of phase 4;
   5. timing (CUDA events; each line names the card and its power limit):
      the 10x10 grid at 262144 chains, one 256-sweep window, each kernel
      form and plain; the headroom encodings of 3c; the 8 Promedus-shaped
@@ -137,8 +160,18 @@ COLLAPSED_CHAINS = 32768
 #: 7e-4 bias from each chain's uniform 1/card seed over >= 500 counted
 #: sweeps
 HELL_BOUND = 0.005
-#: sampling-clock budget (s) of the adaptive CLI runs and the 5b runs
+#: sampling-clock budget (s) of the 5b runs
 ADAPT_SECS = 30
+#: the same of the adaptive CLI runs 4c, 4d (and 4e: a third, then two)
+CLI_ADAPT_SECS = 21
+#: budget (s) of each 4h run on the torch-ops route
+OPS_SECS = 20
+#: max Hellinger of a 4h run against the 30 s ``-s simple`` run: the ops
+#: route counts about 1e3 times fewer samples in its budget than the
+#: kernel (some 1e5 effective draws per var: 5 sigma about 0.006), after
+#: a burn-in of 10 sweeps, and vars collapsed late hold few RB snapshots;
+#: a wrong table lookup shows as 0.1 and more
+OPS_HELL_BOUND = 0.02
 #: the card's peaks for ``bound_ms``: device memory rate (H100 SXM data
 #: sheet) and thread operations per clock (132 SMs x 4 schedulers x 32
 #: lanes); the clock is the card's ``clocks.max.sm``
@@ -190,10 +223,10 @@ def window_inputs(torch, dev, variants, caps, chains):
     a random kernel-order state of ``chains`` chains per variant with
     evidence pinned, its free-row mask [N, NSLOT], and the free sites of
     one chain summed over the variants."""
-    from grample_tpu_torch.ops.sweep import check_supported, sweep_tensors
+    from grample_tpu_torch.ops.sweep import kernel_refusal, sweep_tensors
     from grample_tpu_torch.pgm.encode import encode_model, stack_variants
 
-    check_supported(caps)
+    assert kernel_refusal(caps) is None, kernel_refusal(caps)
     encs = [encode_model(v, caps) for v in variants]
     kst = sweep_tensors(stack_variants(encs), dev)
     n = len(variants)
@@ -478,10 +511,17 @@ def main() -> int:
     from grample_tpu_torch.metrics import error_suite
     from grample_tpu_torch.metrics.divergences import pad_marginals
     from grample_tpu_torch.ops import _build, gibbs_cuda
+    from grample_tpu_torch.ops.gibbs_bank import chain_block, window_ops
     from grample_tpu_torch.ops.gibbs_torch import window_plain
-    from grample_tpu_torch.ops.sweep import KERNEL_KEYS, hash_block
+    from grample_tpu_torch.ops.sweep import KERNEL_KEYS, hash_block, kernel_refusal, sweep_tensors
     from grample_tpu_torch.pgm import discrete
-    from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP, caps_for_variants
+    from grample_tpu_torch.pgm.encode import (
+        COLLAPSE_OA_DENSE_CAP,
+        caps_for_variants,
+        compute_caps,
+        encode_model,
+        stack_variants,
+    )
     from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh, shard_seed
     from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.chains import ChainGroup, window_seed
@@ -493,14 +533,18 @@ def main() -> int:
     from tests import torch_models
 
     dev = torch.device("cuda:0")
-    path_launches = {}  # phase -> launches by counts form on that path
+    path_launches = {}  # phase -> kernel launches by form on that path
+    ops_windows = {}  # phase -> windows of the torch-ops route, by form
 
     def reset_counts():
         gibbs_cuda.gibbs_window.launches = 0
         gibbs_cuda.gibbs_window.launches_by_form = {}
+        window_ops.launches = 0
+        window_ops.launches_by_form = {}
 
     def read_counts(phase):
         path_launches[phase] = dict(gibbs_cuda.gibbs_window.launches_by_form)
+        ops_windows[phase] = dict(window_ops.launches_by_form)
         return gibbs_cuda.gibbs_window.launches
 
     # ---- 1. the card -----------------------------------------------------
@@ -542,6 +586,41 @@ def main() -> int:
     wide_err = max(compare_window(
         torch, wkst, wstate0, wfree, wn_free, wcaps.num_slots, WIDE_CHAINS,
         hash_block(WIDE_CHAINS), f"{WIDE_SLOTS} collapse variants").values())
+
+    # ---- 3e. the torch-ops route against the kernel ---------------------------
+    gcaps = dataclasses.replace(wcaps, base_mode="gather", adj_cap=0, oa_cap=1,
+                                gfac_cap=wcaps.adj_cap + wcaps.gfac_cap)
+    check("gather bank" in (kernel_refusal(gcaps) or ""), "3e: the gate took all-gather caps")
+    gkst = sweep_tensors(stack_variants([encode_model(v, gcaps) for v in wvariants]), dev,
+                         compact=False)
+    check(torch.equal(gkst["pal_oon"], wkst["pal_oon"])
+          and torch.equal(gkst["k_kmask"], wkst["k_kmask"]),
+          "3e: the dense and the all-gather encoding differ in kernel order")
+    wcb, wslot, wlive = hash_block(WIDE_CHAINS), wcaps.num_slots, wfree.bool()
+    sk, ck = gibbs_cuda.gibbs_window(wkst, wstate0.clone(), SEED, 1, 0, True, wcb)
+    so, co = window_ops(gkst, wstate0.clone(), SEED, 1, 0, True, wcb)
+    torch.cuda.synchronize()
+    ops_differ = int(((sk[:, :wslot] != so[:, :wslot]) & wlive[:, :, None]).sum().item())
+    ops_frac = ops_differ / (int(wlive.sum().item()) * WIDE_CHAINS)
+    check(ops_frac <= MAX_MISMATCH, f"3e: {ops_frac:.2e} of free sites differ")
+    check(torch.equal(so[:, wslot:], wstate0[:, wslot:]), "3e: the ops route wrote a tail row")
+    per_row = co.sum(dim=(1, 2, 4))
+    check(int((per_row * wlive).sum().item()) == WIDE_CHAINS * wn_free
+          and int((per_row * ~wlive).sum().item()) == 0, "3e: the ops route's count totals")
+    agree = (sk[:, :wslot] == so[:, :wslot]).all(dim=0)[None] & wlive[:, :, None]
+    check(not bool(((ck != co).any(dim=1).any(dim=1) & agree).any().item()),
+          "3e: counts differ on free rows where states agree")
+    sp, cp = window_plain(*[wkst[k] for k in KERNEL_KEYS], wstate0.clone(), SEED, 1, 0, True, wcb)
+    sd, cd = window_ops(wkst, wstate0.clone(), SEED, 1, 0, True, wcb)
+    check(torch.equal(sd, sp) and torch.equal(cd, cp),
+          "3e: on the dense encoding the ops route differs from the plain version")
+    print(f"3e: {WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, dense through the kernel "
+          f"and all-gather (gfac_cap {gcaps.gfac_cap}, scope_cap {gcaps.scope_cap}) through "
+          f"window_ops on the card: {ops_differ} of {int(wlive.sum().item()) * WIDE_CHAINS} free "
+          f"sites differ (bound {MAX_MISMATCH}), counts equal where states agree; window_ops "
+          f"on the dense encoding equals the plain version exactly; blocks of "
+          f"{chain_block(gkst, WIDE_CHAINS)} chains", flush=True)
+    del sk, ck, so, co, sp, cp, sd, cd, agree, per_row
 
     # ---- 3c. the kernel on collapse-headroom encodings -----------------------
     hvariants, hcaps, hpicks = headroom_grid_variants()
@@ -745,7 +824,7 @@ def main() -> int:
             mar_out, trace = os.path.join(td, f"{phase}.MAR"), os.path.join(td, f"{phase}.t")
             argv = ["sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2",
                     "--vchains", str(GRID_CHAINS), "-a", "2", "-b", str(200 * v),
-                    "-w", str(100 * v), "-x", str(ADAPT_SECS), "-e", str(SEED),
+                    "-w", str(100 * v), "-x", str(CLI_ADAPT_SECS), "-e", str(SEED),
                     "--split-group", split, "--mar-out", mar_out, "-t", trace]
             reset_counts()
             t0 = time.perf_counter()
@@ -768,7 +847,7 @@ def main() -> int:
             check(a_score.max_hellinger < HELL_BOUND,
                   f"{phase}: max Hellinger {a_score.max_hellinger:.5f} >= {HELL_BOUND}")
             aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
-            print(f"cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {ADAPT_SECS} "
+            print(f"cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {CLI_ADAPT_SECS} "
                   f"--split-group {split} ({phase}): {secs:.1f} s, {launches_a} kernel "
                   f"launches, {len(steps)} adapt steps ({sum(steps):.3f} s of host time), "
                   f"collapsed vars {res['collapsed']}, {res['variants']} variants, aux "
@@ -804,12 +883,12 @@ def main() -> int:
                 "-w", str(100 * v), "-e", str(SEED), "--split-group", "on",
                 "--checkpoint", ck, "--checkpoint-secs", "2"]
         os.remove(ck)
-        rc, log1 = run_cli(cli, base + ["-x", str(ADAPT_SECS // 3)])
+        rc, log1 = run_cli(cli, base + ["-x", str(CLI_ADAPT_SECS // 3)])
         check(rc == 0 and os.path.exists(ck + ".aux"), "4e: the first run wrote no split snapshot")
         g1, meta1 = load_checkpoint(ck, model_ev, device=dev)
         snaps1 = dict(g1.aux._rbp_snaps)
         reset_counts()
-        rc, log2 = run_cli(cli, base + ["-x", str(2 * (ADAPT_SECS // 3)), "--resume"])
+        rc, log2 = run_cli(cli, base + ["-x", str(2 * (CLI_ADAPT_SECS // 3)), "--resume"])
         launches_r = read_counts("4e")
         g2, meta2 = load_checkpoint(ck, model_ev, device=dev)
         check(rc == 0 and "RESUMED" in log2, "4e: the run did not resume")
@@ -1055,6 +1134,20 @@ def main() -> int:
     wbound = window_bound(wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
     rate_line(f"the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window",
               WIDE_PAIR_SWEEPS * wsites, wide_ms, wide_plain_ms, wbound)
+    # 3e's two times: the same 8-sweep counted window on the ops route, on
+    # the all-gather encoding and on the dense one
+    torch.cuda.reset_peak_memory_stats()
+    ops_gather_ms = best(lambda st, *a: window_ops(gkst, st, *a), wstate0, WIDE_PAIR_SWEEPS)
+    ops_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ops_dense_ms = best(lambda st, *a: window_ops(wkst, st, *a), wstate0, WIDE_PAIR_SWEEPS)
+    print(f"timing ({card}): 3e, the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window: "
+          f"kernel (dense encoding) {wide_ms:.3f} ms; torch-ops route on the all-gather "
+          f"encoding {ops_gather_ms:.3f} ms = "
+          f"{WIDE_PAIR_SWEEPS * wsites / (ops_gather_ms / 1e3):.4e} site-samples/s "
+          f"({ops_gather_ms / wide_ms:.1f}x the kernel, peak device memory {ops_peak_gb:.2f} GB); "
+          f"torch-ops route on the dense encoding {ops_dense_ms:.3f} ms; plain version "
+          f"{wide_plain_ms:.3f} ms", flush=True)
+    del gkst
     # block width against staging: what plan_launch's width rule rests on
     shape_rows(wlabel, wkst, wstate0, wn_free, WIDE_CHAINS, WIDE_FULL_SWEEPS,
                [(256, True, True), (256, False, False), (1024, True, True),
@@ -1097,6 +1190,7 @@ def main() -> int:
             chains=WIDE_SLOTS, chains_per_variant=WIDE_CHAINS, burnin=50 * v,
             converge_window=100 * v, max_secs=10.0, seed=SEED)
         lines = []
+        held_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
@@ -1110,7 +1204,8 @@ def main() -> int:
     print(f"timing ({card}): engine -s collapsed -c {WIDE_SLOTS} --vchains {WIDE_CHAINS} on "
           f"the Promedus-shaped net: {res.samples_per_sec:.4e} counted site-samples/s over "
           f"{res.runtime:.2f} s of sampling clock ({eng_secs:.2f} s wall, {res.sweeps} "
-          f"sweeps), collapsed vars {res.collapsed}, peak device memory {peak_gb:.2f} GB, "
+          f"sweeps), collapsed vars {res.collapsed}, peak device memory {peak_gb:.2f} GB "
+          f"({held_gb:.2f} GB of it held by earlier phases), "
           f"{eng_launches} kernel launches", flush=True)
 
     # ---- 5b. the adaptive engine on the Promedus-shaped net -----------------
@@ -1126,6 +1221,7 @@ def main() -> int:
                 burnin=50 * v, converge_window=100 * v, max_secs=float(ADAPT_SECS), seed=SEED)
             lines = []
             reset_counts()
+            held_gb = torch.cuda.memory_allocated() / 1e9
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = Engine(cfg, log=lines.append).run()
@@ -1148,7 +1244,8 @@ def main() -> int:
           f"sampling clock; aux {res.aux_secs:.3f} s = {res.aux_secs / res.runtime:.3f} of the "
           f"clock {aux_line}; host s per adapt step {[round(x, 3) for x in steps]} "
           f"(mean {np.mean(steps):.3f}); set-up {wall - res.runtime:.2f} s ({wall:.2f} s "
-          f"wall); peak device memory {peak_gb:.2f} GB; {launches_5b} kernel launches",
+          f"wall); peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB of it held by earlier "
+          f"phases); {launches_5b} kernel launches",
           flush=True)
     res_s, wall_s, peak_s, launches_s, _ = runs["simple"]
     check(res_s.samples > 0 and launches_s > 0, "5b: the simple engine run produced nothing")
@@ -1158,11 +1255,117 @@ def main() -> int:
           f"{peak_s:.2f} GB; adaptive/simple rate {res.samples_per_sec / res_s.samples_per_sec:.3f}",
           flush=True)
 
+    # ---- 4h. the headroom caps the kernel's gate refuses, at full width --------
+    simple_marginals = res_s.marginals
+    hmodel, hevidence = torch_models.promedus_like(discrete, seed=1)
+    hmodel_ev, _ = torch_models.promedus_like(discrete, seed=1)
+    hmodel_ev.apply_evidence(hevidence)
+    v = hmodel.num_vars
+    head_caps = compute_caps(hmodel_ev, collapse_headroom=True, slot_hint=128, headroom_factors=2)
+    check(head_caps.base_mode == "gather" and "gather bank" in kernel_refusal(head_caps),
+          f"4h: headroom caps {head_caps} pass the kernel's gate")
+    with tempfile.TemporaryDirectory() as td:
+        path = write_net(td, "promedus", hmodel, hevidence)
+        for how in ("--split-group off", "2x2 virtual mesh"):
+            trace = os.path.join(td, "4h.t")
+            reset_counts()
+            held_gb = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if how == "--split-group off":
+                mar_out = os.path.join(td, "4h.MAR")
+                rc, log = run_cli(cli, [
+                    "sample", "-m", path, "-d", "-s", "adaptive", "-c", "2", "--vchains", "8192",
+                    "-a", "4", "-b", str(10 * v), "-w", str(5 * v), "-x", str(OPS_SECS),
+                    "-e", str(SEED), "--split-group", "off", "-t", trace, "--mar-out", mar_out])
+                check(rc == 0, f"4h: cli returned {rc}")
+                out = summary(trace)
+                marg = pad_marginals(read_mar_file(mar_out), hmodel.cards)
+                collapsed_h, variants_h, rate_h, kernel_h = (
+                    out["collapsed"], out["variants"], out["samples_per_sec"], out["kernel"])
+            else:
+                lines = []
+                res_h = Engine(EngineConfig(
+                    model_path=path, device="cuda", use_evidence=True, sampler="adaptive",
+                    chains=2, chains_per_variant=8192, chain_adds=4, burnin=10 * v,
+                    converge_window=5 * v, max_secs=float(OPS_SECS), seed=SEED, mesh="2x2"),
+                    log=lines.append, devices=[dev] * 4).run()
+                log = "\n".join(lines)
+                marg, collapsed_h, variants_h, rate_h, kernel_h = (
+                    res_h.marginals, res_h.collapsed, res_h.variants, res_h.samples_per_sec,
+                    res_h.kernel)
+                check("device mesh: {'variants': 2, 'chains': 2} over 4 devices" in log,
+                      "4h: no mesh line")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak_h = torch.cuda.max_memory_allocated() / 1e9
+            launches_h = read_counts(f"4h {how}")
+            steps = adapt_secs(log)
+            route_line = [ln for ln in log.splitlines() if ln.startswith("sweep route: torch ops")]
+            check(len(route_line) == 1 and "gather bank" in route_line[0],
+                  f"4h, {how}: route line {route_line}")
+            check("split group" not in log, f"4h, {how}: a split group")
+            check(launches_h == 0 and not kernel_h and sum(ops_windows[f"4h {how}"].values()) > 0,
+                  f"4h, {how}: {launches_h} kernel launches, ops windows "
+                  f"{ops_windows[f'4h {how}']}")
+            check(len(steps) >= 1 and len(collapsed_h) >= 1,
+                  f"4h, {how}: {len(steps)} adapt steps, collapsed vars {collapsed_h}")
+            check(marg.shape == (v, 2) and np.isfinite(marg).all(), f"4h, {how}: bad marginals")
+            h_score = error_suite(marg, simple_marginals, hmodel_ev.cards, hmodel_ev.fixed, None)
+            check(h_score.max_hellinger < OPS_HELL_BOUND,
+                  f"4h, {how}: max Hellinger {h_score.max_hellinger:.5f} against -s simple "
+                  f">= {OPS_HELL_BOUND}")
+            print(f"4h ({card}): sample -s adaptive -c 2 --vchains 8192 -a 4 -x {OPS_SECS}, {how}, "
+                  f"on the Promedus-shaped net at all-gather headroom caps (gfac_cap "
+                  f"{head_caps.gfac_cap}, group_cap {head_caps.group_cap}, scope_cap "
+                  f"{head_caps.scope_cap}): {route_line[0]!r}; {secs:.1f} s wall, {len(steps)} "
+                  f"adapt steps ({sum(steps):.3f} s of host time), {len(collapsed_h)} collapsed "
+                  f"vars, {variants_h} variants, {rate_h:.4e} counted site-samples/s, windows "
+                  f"by route {ops_windows[f'4h {how}']}, kernel launches {launches_h}, peak device "
+                  f"memory {peak_h:.2f} GB ({held_gb:.2f} GB of it held by earlier phases), "
+                  f"max Hellinger against the {ADAPT_SECS} s -s simple "
+                  f"run {h_score.max_hellinger:.6f} (bound {OPS_HELL_BOUND}), mean "
+                  f"{h_score.mean_hellinger:.6f}", flush=True)
+
+    # ---- 4i. -s simple on a mixed encoding ------------------------------------
+    wmodel = torch_models.wide_factor(discrete, 12, seed=2)
+    wide_caps = compute_caps(wmodel, headroom_factors=0)
+    check(wide_caps.gfac_cap == 1 and wide_caps.adj_cap == 1,
+          f"4i: caps {wide_caps} are not a mixed encoding")
+    wtruth = exact_marginals(wmodel)
+    with tempfile.TemporaryDirectory() as td:
+        path = write_net(td, "wide12", wmodel, {}, wtruth)
+        mar_out = os.path.join(td, "out.MAR")
+        v = wmodel.num_vars
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, log = run_cli(cli, [
+            "sample", "-m", path, "-o", "-s", "simple", "--vchains", str(GRID_CHAINS),
+            "-b", str(100 * v), "-w", str(100 * v), "-i", str(3 * 100 * 2 * GRID_CHAINS * v),
+            "-x", "60", "-e", str(SEED), "--mar-out", mar_out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_w = read_counts("4i")
+        check(rc == 0 and "sweep route: torch ops" in log, f"4i: cli returned {rc}")
+        check(launches_w == 0 and sum(ops_windows["4i"].values()) > 0,
+              f"4i: {launches_w} kernel launches, ops windows {ops_windows['4i']}")
+        est = pad_marginals(read_mar_file(mar_out), wmodel.cards)
+        w_score = error_suite(est, wtruth, wmodel.cards, wmodel.fixed, None)
+    check(w_score.max_hellinger < HELL_BOUND,
+          f"4i: max Hellinger {w_score.max_hellinger:.5f} >= {HELL_BOUND}")
+    rate_w = [ln for ln in log.splitlines() if "samples/s" in ln][-1].strip()
+    print(f"4i ({card}): cli sample -s simple on a 12-var factor + unaries (mixed encoding, "
+          f"torch-ops route): {secs:.1f} s, windows by route {ops_windows['4i']}, last status "
+          f"line {rate_w!r}, max Hellinger {w_score.max_hellinger:.6f} (bound {HELL_BOUND})",
+          flush=True)
+
     # ---- 6. results --------------------------------------------------------
     record("gibbs_window (wide tables)", "grample_tpu/ops/gibbs_pallas.py:355-367",
            of_phases("4b", "5 collapsed"), wide_err, wide_ms, wide_plain_ms, wbound)
     for name, by_form in path_launches.items():
-        print(f"launches on path {name}: {by_form}", flush=True)
+        print(f"launches on path {name}: {by_form}"
+              + (f"; torch-ops windows {ops_windows[name]}" if ops_windows[name] else ""),
+              flush=True)
     for entry in kernels:
         entry["launches"] = entry["launches"](path_launches)
         check(entry["launches"] > 0, f"{entry['name']}: no launch on the main paths")

@@ -26,12 +26,13 @@ import torch
 from grample_tpu_torch.ops.sweep import sweep_tensors
 
 
-def encoding_from_reference(arrays: dict, device) -> dict:
-    """Reference encoding arrays -> the port's sweep tensors on ``device``."""
+def encoding_from_reference(arrays: dict, device, compact: bool = True) -> dict:
+    """Reference encoding arrays -> the port's sweep tensors on ``device``
+    (``compact`` as in ``ops.sweep.sweep_tensors``)."""
     stack = {k: np.asarray(v) for k, v in arrays.items() if k != "sw_wbase"}
     if stack["old_of_new"].ndim == 1:  # one variant: add the stack axis
         stack = {k: v[None] for k, v in stack.items()}
-    return sweep_tensors(stack, device)
+    return sweep_tensors(stack, device, compact)
 
 
 def carry_group_state(ref, port) -> None:

@@ -15,6 +15,11 @@ leading axis N) to:
   k_strides [N, NC, G, F, S] int32 — local mixed-radix strides
   k_tables  [N, NC, G, F, OA, K] f32 — local log tables
   k_kmask   [N, NC, G, K] uint8 — in-card mask (all 0 on padding rows)
+  gb_offset, gb_self_stride, gb_mask [N, NC, G, Fg]; gb_scope_vars,
+  gb_scope_strides [N, NC, G, Fg, S]; tables [N, T] f32 — the flat-table
+            gather bank (``pgm.encode``) in kernel order, its scope rows
+            mapped like ``k_scope``; zero-width (Fg = 0) when the caps
+            hold no gather factors.  Only ``ops.gibbs_bank`` reads them.
   pal_oon   [N, NVp] int32 — kernel row -> old var id
   pal_noo   [N, V+1] int32 — old var id -> kernel row
   pal_soo   [N, V+1] int32 — old var id -> kernel count slot (NSLOT: none)
@@ -83,28 +88,42 @@ def real_incidences(local_tables: np.ndarray) -> np.ndarray:
     return np.abs(local_tables).max(axis=(3, 4)) > 0
 
 
-def kernel_perm(local_tables: np.ndarray, real=None) -> np.ndarray:
+def kernel_perm(local_tables: np.ndarray, real=None, gb_mask=None) -> np.ndarray:
     """[NC, G] per-color stable descending-degree order of one variant
-    (reference ``gibbs_pallas.py:137-140``); only real incidences
-    (``real_incidences``, computed here unless given) count toward the
-    degree."""
+    (reference ``gibbs_pallas.py:137-140``).  The degree counts the real
+    dense incidences (``real_incidences``, computed here unless given)
+    and the gather-bank incidences ``gb_mask`` [NC, G, Fg], so one model
+    gets one order, and hence one hash row per variable, whichever bank
+    its incidences were encoded into.  (A gather incidence counts even
+    when its table is identically zero, a dense one does not.)"""
     if real is None:
         real = real_incidences(local_tables)
-    return np.argsort(-real.sum(axis=2), axis=1, kind="stable")
+    degree = real.sum(axis=2)
+    if gb_mask is not None:
+        degree = degree + np.asarray(gb_mask, dtype=bool).sum(axis=2)
+    return np.argsort(-degree, axis=1, kind="stable")
 
 
-def kernel_stack(stack: dict) -> dict:
-    """Kernel-order sweep constants for a stacked encoding."""
+#: the gather bank's per-incidence arrays, re-ordered like the dense ones
+GATHER_KEYS = ("gb_offset", "gb_self_stride", "gb_scope_strides", "gb_mask")
+
+
+def kernel_stack(stack: dict, compact: bool = True) -> dict:
+    """Kernel-order sweep constants for a stacked encoding.  ``compact``
+    False leaves out the kernel's work lists (``COMPACT_KEYS``): they
+    cover the dense bank only, and an encoding that the kernel does not
+    take (``ops.sweep.kernel_refusal``) may not fit their packed words."""
     n, nc, G = stack["sw_scope_vars"].shape[:3]
     nvp = stack["old_of_new"].shape[1]
     nslot = nc * G
     out = {k: [] for k in ("k_scope", "k_strides", "k_tables", "k_kmask",
+                           "gb_scope_vars", *GATHER_KEYS,
                            "pal_oon", "pal_noo", "pal_soo")}
     reals = []
     ci_idx = np.arange(nc)[:, None]  # pairs with perm [NC, G]
     for i in range(n):
         real = real_incidences(stack["sw_local_tables"][i])
-        perm = kernel_perm(stack["sw_local_tables"][i], real)
+        perm = kernel_perm(stack["sw_local_tables"][i], real, stack["gb_mask"][i])
         reals.append(real[ci_idx, perm])
         shared_of_pal = np.arange(nvp, dtype=np.int32)
         shared_of_pal[:nslot] = (ci_idx * G + perm).reshape(-1)
@@ -115,15 +134,22 @@ def kernel_stack(stack: dict) -> dict:
         out["k_strides"].append(stack["sw_other_strides"][i][ci_idx, perm])
         out["k_tables"].append(stack["sw_local_tables"][i][ci_idx, perm])
         out["k_kmask"].append(stack["sw_kmask"][i][ci_idx, perm])
+        out["gb_scope_vars"].append(
+            pal_of_shared[stack["gb_scope_vars"][i][ci_idx, perm]])
+        for key in GATHER_KEYS:
+            out[key].append(stack[key][i][ci_idx, perm])
         out["pal_oon"].append(stack["old_of_new"][i][shared_of_pal])
         out["pal_noo"].append(pal_of_shared[stack["new_of_old"][i]])
         soo = stack["slot_of_old"][i]  # grouped slots coincide with rows < nslot
         out["pal_soo"].append(
             np.where(soo < nslot, pal_of_shared[np.minimum(soo, nvp - 1)],
                      nslot))
-    dtypes = {"k_tables": np.float32, "k_kmask": np.uint8}
+    dtypes = {"k_tables": np.float32, "k_kmask": np.uint8, "gb_mask": np.uint8}
     dense = {k: np.stack(v).astype(dtypes.get(k, np.int32), copy=False)
              for k, v in out.items()}
+    dense["tables"] = np.asarray(stack["tables"], dtype=np.float32)
+    if not compact:
+        return dense
     return {**dense, **compact_stack(dense, stack["cards"], reals)}
 
 

@@ -6,21 +6,24 @@ order ``[N, NVp, C]``, run one window, permute back, and map the kernel's
 slot counts ``[N, 2, K, NSLOT, C]`` onto the split-half window tensor
 ``[N, 2, C, V+1, K]``.
 
-The window runs the CUDA kernel (``ops.gibbs_cuda``) for CUDA tensors and
-its plain PyTorch version (``ops.gibbs_torch``) for CPU tensors; a CUDA
-tensor never takes the plain path.  ``sweep_tensors`` carries both
-inputs: the dense kernel-order rectangles that the plain version reads,
-and the compact work lists (``ops.layout``) that the kernel walks, since
-on the card a window is bound by the operations and shared-memory
-loads it issues per slot visited, and most slots of the rectangles are
-padding.  ``check_supported`` is the gate: the sweep takes the dense
-local-table bank only, local tables of at most ``OA_MAX`` rows, cards up
-to 16, and at most ``gibbs_cuda.MAX_ROWS`` state rows whose packed state
-fits a 32-thread block's shared memory (what a launch really needs is
-sized from its live rows, by ``gibbs_cuda.plan_launch``).
+The window has two routes, chosen from the group's caps before any launch
+(``route_for``).  ``"kernel"``: the CUDA kernel (``ops.gibbs_cuda``) for
+CUDA tensors and its plain PyTorch version (``ops.gibbs_torch``) for CPU
+tensors; a CUDA tensor never takes the plain path.  ``"ops"``: batched
+torch ops on the tensors' device (``ops.gibbs_bank``, the counterpart of
+the reference's XLA sweep), for what ``kernel_refusal`` names: the kernel
+takes the dense local-table bank only, local tables of at most ``OA_MAX``
+rows, cards up to 16, and at most ``gibbs_cuda.MAX_ROWS`` state rows whose
+packed state fits a 32-thread block's shared memory (what a launch really
+needs is sized from its live rows, by ``gibbs_cuda.plan_launch``).
+``sweep_tensors`` carries every input: the dense kernel-order rectangles
+that the plain version and the ops route read, the gather bank, and the
+compact work lists (``ops.layout``) that the kernel walks, since on the
+card a window is bound by the operations and shared-memory loads it makes
+per slot visited, and most slots of the rectangles are padding.
 
-One code path serves every table width.  The reference kernel has two
-lookup forms (an unrolled select chain up to 32 rows, a counted loop up
+The kernel route has one code path for every table width.  The
+reference kernel has two lookup forms (an unrolled select chain up to 32 rows, a counted loop up
 to ``PAL_OA_MAX`` = 256, ``gibbs_pallas.py:347-367``) and stops at 256
 because its bf16 base matmul is exact only that far (``:219-221``); the
 port reads row ``base`` of the local table directly, so its bound is the
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as fnn
 
 from grample_tpu_torch.ops import gibbs_cuda
+from grample_tpu_torch.ops.gibbs_bank import window_ops
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.ops.layout import COMPACT_KEYS, kernel_stack
 from grample_tpu_torch.pgm.encode import BASE_DENSE_LIMIT
@@ -50,24 +54,42 @@ KERNEL_KEYS = ("k_scope", "k_strides", "k_tables", "k_kmask")
 OA_MAX = BASE_DENSE_LIMIT
 
 
-def check_supported(caps) -> None:
-    """Refuse, with a reason, what the sweep does not take."""
+def kernel_refusal(caps):
+    """Why the CUDA kernel does not take an encoding at ``caps``, or None
+    when it does (the reference's ``pallas_eligible``,
+    ``gibbs_pallas.py:229-253``).  What it refuses runs as torch ops
+    (``ops.gibbs_bank``)."""
     if caps.gfac_cap > 0:
-        raise ValueError(
-            f"encoding uses the gather bank (gfac_cap={caps.gfac_cap}): the "
-            "sweep takes dense local tables only (incidences of at most "
-            f"{caps.oa_dense_cap} local rows)")
+        return (f"encoding uses the gather bank (gfac_cap={caps.gfac_cap}): the "
+                "kernel takes dense local tables only (incidences of at most "
+                f"{caps.oa_dense_cap} local rows)")
     if caps.oa_cap > OA_MAX:
-        raise ValueError(f"local tables of {caps.oa_cap} rows exceed the "
-                         f"sweep's {OA_MAX}")
+        return f"local tables of {caps.oa_cap} rows exceed the kernel's {OA_MAX}"
     if caps.max_card > gibbs_cuda.MAX_CARD:
-        raise ValueError(f"max card {caps.max_card} > {gibbs_cuda.MAX_CARD}: "
-                         "not taken by the sweep kernel")
+        return (f"max card {caps.max_card} > {gibbs_cuda.MAX_CARD}: "
+                "not taken by the sweep kernel")
     if (caps.num_rows > gibbs_cuda.MAX_ROWS
             or gibbs_cuda.state_bytes(caps.num_rows, caps.max_card, 32)
             > gibbs_cuda.MAX_SMEM_BYTES):
-        raise ValueError(f"{caps.num_rows} state rows exceed the sweep "
-                         "kernel's shared memory")
+        return f"{caps.num_rows} state rows exceed the sweep kernel's shared memory"
+    return None
+
+
+def route_for(caps) -> str:
+    """``"kernel"`` or ``"ops"``: the sweep route of a group at ``caps``,
+    decided from the caps alone, before any launch."""
+    return "kernel" if kernel_refusal(caps) is None else "ops"
+
+
+def check_supported(caps) -> None:
+    """Refuse what neither route takes.  The reference's encoder has no
+    card or row limit of its own (``grample_tpu/pgm/encode.py:555-560``
+    checks a variant against its caps only); its index arithmetic is
+    int32 (``gibbs_xla.py:133-134``), as is the torch route's within one
+    variant, so a flat table or a state beyond int32 is refused."""
+    if caps.table_cap >= 2 ** 31 or caps.num_rows >= 2 ** 31:
+        raise ValueError(f"flat table of {caps.table_cap} entries or state of "
+                         f"{caps.num_rows} rows exceeds the sweep's int32 indices")
 
 
 def hash_block(chains: int) -> int:
@@ -76,10 +98,12 @@ def hash_block(chains: int) -> int:
     return int(np.gcd(int(chains), HASH_CB))
 
 
-def sweep_tensors(stack: dict, device) -> dict:
+def sweep_tensors(stack: dict, device, compact: bool = True) -> dict:
     """Kernel-order sweep tensors on ``device`` from a stacked encoding
-    (``pgm.encode.stack_variants`` output, numpy, leading axis N)."""
-    return to_device(kernel_stack(stack), device)
+    (``pgm.encode.stack_variants`` output, numpy, leading axis N);
+    ``compact`` False leaves out the kernel's work lists, which the ops
+    route does not read."""
+    return to_device(kernel_stack(stack, compact), device)
 
 
 def to_device(kst: dict, device) -> dict:
@@ -100,16 +124,29 @@ def write_slots(kst: dict, slots, fresh: dict) -> None:
         kst[key][slots] = v
 
 
+#: every tensor of ``sweep_tensors`` that holds log potentials
+TABLE_KEYS = ("k_tables", "c_tables", "tables")
+
+
 def scale_tables(kst: dict, beta: float) -> dict:
-    """``kst`` with every log table (dense and compact) times ``beta``."""
-    return {**kst, "k_tables": kst["k_tables"] * beta,
-            "c_tables": kst["c_tables"] * beta}
+    """``kst`` with every log table (dense, compact and flat) times
+    ``beta`` (the reference scales its flat tables too,
+    ``sampler/chains.py:723``)."""
+    return {**kst, **{k: kst[k] * beta for k in TABLE_KEYS if k in kst}}
 
 
 def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,
-           count: bool, cb: int):
-    """Kernel (on the compact lists) for CUDA tensors, plain version (on
-    the dense tensors) for CPU tensors, else raise."""
+           count: bool, cb: int, route: str = "kernel"):
+    """One window by the group's ``route`` (``route_for`` of its caps).
+    ``"kernel"``: the CUDA kernel (on the compact lists) for CUDA
+    tensors, its plain version (on the dense tensors) for CPU tensors,
+    else raise.  ``"ops"``: the batched torch ops of ``ops.gibbs_bank``
+    on the tensors' device.  Nothing here turns a failed launch into
+    another route."""
+    if route == "ops":
+        return window_ops(kst, state_p, seed, num_sweeps, half_point, count, cb)
+    if route != "kernel":
+        raise ValueError(f"unknown sweep route {route!r}")
     if state_p.is_cuda:
         return gibbs_cuda.gibbs_window(kst, state_p, seed, num_sweeps,
                                        half_point, count, cb)
@@ -120,14 +157,15 @@ def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,
 
 
 def advance_chains(kst: dict, state, halves, seed: int, num_sweeps: int,
-                   half_point: int, count: bool = True, cb: int = HASH_CB):
+                   half_point: int, count: bool = True, cb: int = HASH_CB,
+                   route: str = "kernel"):
     """Advance every chain of every stacked variant by one window.
 
     kst: ``sweep_tensors`` output; state ``[N, C, V+1]`` int32; halves
     ``[N, 2, C, V+1, K]`` int32 (the window's counts are ADDED when
     ``count``).  ``seed`` is the window's int32 seed and ``cb`` the hash
     lane width (``C % cb == 0`` reproduces the reference kernel's chain
-    blocks).  Returns new ``(state, halves)``.
+    blocks); ``route`` as in ``window``.  Returns new ``(state, halves)``.
     """
     n, c, v1 = state.shape
     oon = kst["pal_oon"].long()  # [N, NVp]
@@ -135,7 +173,7 @@ def advance_chains(kst: dict, state, halves, seed: int, num_sweeps: int,
     state_p = torch.gather(state, 2, oon[:, None, :].expand(n, c, nvp))
     state_p = state_p.transpose(1, 2).contiguous()  # [N, NVp, C]
     state_p, counts = window(kst, state_p, seed, num_sweeps, half_point,
-                             count, cb)
+                             count, cb, route)
     noo = kst["pal_noo"].long()  # [N, V+1]
     state_out = torch.gather(state_p, 1, noo[:, :, None].expand(n, v1, c))
     state_out = state_out.transpose(1, 2).contiguous()

@@ -231,7 +231,8 @@ class ShardedChainGroup(ChainGroup):
         nl = self.local_slots
         self.kstack = []
         for vi, row in enumerate(self.mesh.devices):
-            kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()})
+            kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
+                               self.route == "kernel")
             self.kstack.append({dev: to_device(kst, dev) for dev in dict.fromkeys(row)})
 
     def _scatter(self, state, halves) -> None:
@@ -255,7 +256,8 @@ class ShardedChainGroup(ChainGroup):
                 continue
             loc = [slots[i] - vi * nl for i in sel]
             if stack is not None:
-                fresh = kernel_stack({k: v[sel] for k, v in stack.items()})
+                fresh = kernel_stack({k: v[sel] for k, v in stack.items()},
+                                     self.route == "kernel")
                 for dev, kst in self.kstack[vi].items():
                     write_slots(kst, loc, to_device(fresh, dev))
             for sh in self._row(vi):
@@ -282,7 +284,7 @@ class ShardedChainGroup(ChainGroup):
             st, hv = advance_chains(
                 kst, sh.state[:na], sh.halves[:na],
                 shard_seed(seed, sh.v0, sh.c0 // self.cb),
-                sweeps, half, count=count, cb=self.cb,
+                sweeps, half, count=count, cb=self.cb, route=self.route,
             )
             sh.state[:na] = st
             sh.halves[:na] = hv

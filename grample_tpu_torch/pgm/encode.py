@@ -23,11 +23,11 @@ classified by the factor's *local* table size OA = table_size / card(var):
     local mixed-radix base index from the neighbours' states
     (``sw_scope_vars`` × ``sw_other_strides``) and reads row ``base``.
   - **gather bank** ``gb_*`` (larger incidences): indexes the flat
-    ``tables`` array directly.  Encoded for parity with the reference;
-    the port's sweep refuses encodings that use it
-    (``ops.sweep.check_supported``).  Collapse variants never use it:
-    ``caps_for_variants`` raises the dense threshold to their widest
-    incidence, which the collapse guard bounds.
+    ``tables`` array directly.  The CUDA kernel does not take it
+    (``ops.sweep.kernel_refusal``); an encoding that uses it sweeps as
+    torch ops (``ops.gibbs_bank``).  The collapsed sampler's variants
+    never use it: ``caps_for_variants`` raises the dense threshold to
+    their widest incidence, which the collapse guard bounds.
 
 **Color-contiguous renumbering.**  The sweep operates on a permuted
 variable space in which each chromatic group's variables occupy a

@@ -47,6 +47,7 @@ from grample_tpu_torch.ops.sweep import (
     advance_chains,
     check_supported,
     hash_block,
+    route_for,
     scale_tables,
     sweep_tensors,
     write_slots,
@@ -148,7 +149,7 @@ class ChainGroup:
             slot_hint=max_variants if collapse_headroom else 1,
             headroom_factors=2 if collapse_headroom else 0,
         )
-        check_supported(self.caps)
+        self._set_caps(self.caps)
         self.cb = hash_block(self.cpv)
         self._step = 0
 
@@ -201,9 +202,19 @@ class ChainGroup:
     @property
     def collapse_oa_cap(self) -> int:
         """Dense bound a collapse variant must meet to join this group
-        (``adapt_step`` passes it to ``is_collapsible``): the sweep takes
-        no gather-bank rows (reference ``:240-247``)."""
+        (``adapt_step`` passes it to ``is_collapsible``): variants that
+        would need gather rows of their own stay excluded on either
+        route (reference ``:240-247``)."""
         return self.caps.oa_dense_cap
+
+    def _set_caps(self, caps: EncodeCaps) -> None:
+        """Take ``caps`` and the sweep route they give: ``"kernel"``
+        where the CUDA kernel takes them, else ``"ops"``
+        (``ops.gibbs_bank``).  Re-evaluated whenever the caps grow, as
+        the reference's ``_refresh_pallas`` (``:261-286``, ``:334``)."""
+        check_supported(caps)
+        self.caps = caps
+        self.route = route_for(caps)
 
     def _next_seed(self) -> int:
         """Advance ``_step`` and return that window's int32 seed."""
@@ -276,8 +287,8 @@ class ChainGroup:
         """``encode_model`` with caps growth; returns (enc, grew).
 
         On growth the caps become the merge of the old caps and the
-        model's own (reference ``chains.py:320-336``), pass the sweep's
-        gate again, and every existing variant is re-encoded; the device
+        model's own (reference ``chains.py:320-336``), the sweep route is
+        chosen again, and every existing variant is re-encoded; the device
         stack is NOT rebuilt here (callers restack)."""
         try:
             return encode_model(model, self.caps), False
@@ -286,8 +297,7 @@ class ChainGroup:
                 self.caps,
                 compute_caps(model, oa_dense_cap=self.caps.oa_dense_cap),
             )
-            check_supported(caps)
-            self.caps = caps
+            self._set_caps(caps)
             self.encs = [encode_model(mv, self.caps) for mv in self.variants]
             return encode_model(model, self.caps), True
 
@@ -325,7 +335,7 @@ class ChainGroup:
         axis Ncap) and the fresh states ``state`` [Ncap, C, V+1], over
         which the slots held so far keep their states; the window halves
         start at zero."""
-        self.kstack = sweep_tensors(stack, self.device)
+        self.kstack = sweep_tensors(stack, self.device, self.route == "kernel")
         new_state = torch.as_tensor(state, device=self.device)
         if self.state is not None:
             n = min(self.state.shape[0], self.slot_cap)
@@ -343,7 +353,8 @@ class ChainGroup:
         restack, which placed them already) and their states ``state``
         [n, C, V+1]."""
         if stack is not None:
-            write_slots(self.kstack, slots, sweep_tensors(stack, self.device))
+            write_slots(self.kstack, slots,
+                        sweep_tensors(stack, self.device, self.route == "kernel"))
         self.state[slots] = torch.as_tensor(state, device=self.device)
 
     def add_variant(self, model: DiscreteModel, burn_sweeps: int = 0,
@@ -406,7 +417,7 @@ class ChainGroup:
         st, hv = advance_chains(
             {k: v[:nact] for k, v in self.kstack.items()},
             self.state[:nact], self.halves[:nact], self._next_seed(),
-            sweeps, half, count=count, cb=self.cb,
+            sweeps, half, count=count, cb=self.cb, route=self.route,
         )
         self.state[:nact] = st
         self.halves[:nact] = hv

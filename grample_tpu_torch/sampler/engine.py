@@ -15,8 +15,12 @@ exactly those variants (``caps_for_variants``).
 ``-s adaptive`` (the kelly19a estimator) adds collapse variants of the
 worst-converged vars during the first half of the budget
 (``sampler/adaptive.py``).  It runs one ``ChainGroup`` on collapse-headroom
-caps where the sweep takes them, else a ``SplitChainGroup``
-(``_want_split``).
+caps where the sweep kernel takes them, else a ``SplitChainGroup``
+(``_want_split``).  Under a mesh or ``split_group="off"`` it is one group
+whatever its caps: what the kernel's gate refuses (the gather bank of a
+Promedus-shaped net's headroom caps) sweeps as torch ops
+(``ops.gibbs_bank``), and the engine logs that route with the gate's
+reason.
 
 Reference flag units are single-site samples; the engine works in
 *sweeps* (one sweep resamples every free variable once): ``burnin``
@@ -43,7 +47,7 @@ import torch
 from grample_tpu_torch.metrics import ErrorSuite, error_suite
 from grample_tpu_torch.metrics.divergences import pad_marginals
 from grample_tpu_torch.pgm.discrete import DiscreteModel, norm_marginals
-from grample_tpu_torch.ops.sweep import check_supported
+from grample_tpu_torch.ops.sweep import kernel_refusal
 from grample_tpu_torch.pgm.encode import (
     COLLAPSE_OA_DENSE_CAP,
     caps_for_variants,
@@ -143,6 +147,7 @@ class RunResult:
     convergence: Optional[Dict[str, np.ndarray]] = None
     samples_per_sec: float = 0.0
     aux_secs: float = 0.0  # split execution: wall spent on the aux group
+    kernel: bool = False  # throughput path swept with the CUDA kernel's route
 
 
 class Engine:
@@ -177,6 +182,7 @@ class Engine:
         self.monitor = monitor
         self.devices = devices
         self.trace_fh = None
+        self._ops_logged = set()  # gate reasons already logged
         if cfg.trace_path:
             self.trace_fh = open(cfg.trace_path, "w")
 
@@ -247,6 +253,7 @@ class Engine:
                 f"chains, {group.total_samples:,} samples, "
                 f"{group.total_sweeps} sweeps, {prior_runtime:.1f}s spent"
             )
+            self._log_route(group)
             group.warmup()  # first launch off the budget clock
             if adaptive and isinstance(group, SplitChainGroup) \
                     and prior_runtime < cfg.max_secs / 2:
@@ -274,6 +281,7 @@ class Engine:
                 reserve = max(reserve, self._auto_reserve(cfg, group))
             group.reserve(reserve)
             group.add_variants(variants)
+            self._log_route(group)
             group.warmup()  # wall mode: the first launch runs ON the clock
             if adaptive and isinstance(group, SplitChainGroup):
                 # the aux group's build and first launch, before the
@@ -387,6 +395,7 @@ class Engine:
                         f"ADAPT: {group.num_variants} chains "
                         f"(+{len(added)}: collapsed vars {added}) in {dt:.3f} s"
                     )
+                    self._log_route(group)  # grown caps may leave the kernel's gate
 
             if cfg.checkpoint_path and time.time() > next_checkpoint:
                 self.save_checkpoint(group, prior_runtime + (time.time() - t_clock))
@@ -414,6 +423,7 @@ class Engine:
             collapsed=sorted(int(x) for x in np.nonzero(group.collapsed_any())[0]),
             samples_per_sec=group.total_samples / max(runtime, 1e-9),
             aux_secs=float(getattr(group, "aux_secs", 0.0)),
+            kernel=group.route == "kernel",
         )
 
         if solution is not None:
@@ -555,6 +565,7 @@ class Engine:
                     "collapsed": result.collapsed,
                     "samples_per_sec": result.samples_per_sec,
                     "aux_secs": result.aux_secs,
+                    "kernel": result.kernel,
                     "final_score": result.final_score.as_dict() if result.final_score else None,
                 }
             )
@@ -647,25 +658,30 @@ class Engine:
         per_slot = enc_bytes + cpv * v1 * 4 + 2 * cpv * v1 * k * 4
         return cfg.max_variants if per_slot * cfg.max_variants <= (1 << 30) else 0
 
+    def _log_route(self, group) -> None:
+        """One line for every group (a split group's main and aux) whose
+        sweep takes the torch-ops route, with the kernel gate's reason."""
+        for g in (getattr(group, "main", group), getattr(group, "aux", None)):
+            if g is None or g.route != "ops":
+                continue
+            reason = kernel_refusal(g.caps)
+            if reason not in self._ops_logged:
+                self._ops_logged.add(reason)
+                self.log(f"sweep route: torch ops on {g.device} ({reason})")
+
     @staticmethod
     def _want_split(cfg: EngineConfig, model) -> bool:
-        """Split execution when the sweep takes the model's plain caps but
-        refuses its collapse-headroom caps (``check_supported``; the
-        reference asks its kernel's ``pallas_eligible`` the same question,
-        ``engine.py:668-684``).  ``split_group`` "on"/"off" overrides."""
+        """Split execution when the sweep kernel takes the model's plain
+        caps but refuses its collapse-headroom caps (``kernel_refusal``;
+        the reference asks its kernel's ``pallas_eligible`` the same
+        question, ``engine.py:668-684``).  ``split_group`` "on"/"off"
+        overrides."""
         if cfg.split_group != "auto":
             return cfg.split_group == "on"
-        try:
-            check_supported(compute_caps(model, headroom_factors=0))
-        except ValueError:
-            return False
-        try:
-            check_supported(compute_caps(
-                model, collapse_headroom=True, slot_hint=cfg.max_variants,
-                headroom_factors=2))
-        except ValueError:
-            return True
-        return False
+        plain = compute_caps(model, headroom_factors=0)
+        head = compute_caps(model, collapse_headroom=True,
+                            slot_hint=cfg.max_variants, headroom_factors=2)
+        return kernel_refusal(plain) is None and kernel_refusal(head) is not None
 
     def save_checkpoint(self, group, runtime: float = 0.0):
         checkpoint.save_checkpoint(self.cfg.checkpoint_path, group, self.cfg,

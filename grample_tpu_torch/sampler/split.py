@@ -2,10 +2,10 @@
 
 Counterpart of ``grample_tpu.sampler.split`` (its narrow tier).  In one
 ``ChainGroup`` every slot runs at the group's caps, and on Promedus-class
-nets the collapse-headroom caps are both refused by the sweep's gate (the
-dense tables of ``max_variants`` slots outgrow the table budget and fall
-into the gather bank) and far slower per site: more state rows mean fewer
-chains per block on the card.  This wrapper keeps the reference's
+nets the collapse-headroom caps are both refused by the sweep kernel's
+gate (the dense tables of ``max_variants`` slots outgrow the table budget
+and fall into the gather bank, which sweeps as torch ops) and far slower
+per site: more state rows mean fewer chains per block on the card.  This wrapper keeps the reference's
 semantics (``MergeChains``, ``sampler/chain.go:96-148``: counts sum over
 all chains; a var collapsed in any chain takes that chain's estimate)
 while splitting the execution:
@@ -177,6 +177,11 @@ class SplitChainGroup:
     @property
     def total_sweeps(self) -> int:
         return self.main.total_sweeps + (self.aux.total_sweeps if self.aux else 0)
+
+    @property
+    def route(self) -> str:
+        """The sweep route of the throughput path, the main group's."""
+        return self.main.route
 
     @property
     def slot_cap(self) -> int:

@@ -319,9 +319,9 @@ def test_adapt_step_warm_starts():
 
 def test_collapse_headroom_caps_stay_dense():
     """Headroom caps classify replacement factors dense, and a blanket-10
-    variant encodes with no gather-bank rows and passes the sweep's gate
+    variant encodes with no gather-bank rows and passes the kernel's gate
     (reference ``tests/test_collapse.py:172-195``)."""
-    from grample_tpu_torch.ops.sweep import check_supported
+    from grample_tpu_torch.ops.sweep import kernel_refusal
 
     m = torch_models.build(port_pgm, "star10")
     caps = port_encode.compute_caps(m, collapse_headroom=True, slot_hint=8)
@@ -332,7 +332,7 @@ def test_collapse_headroom_caps_stay_dense():
         variant, oa_dense_cap=caps.oa_dense_cap))
     enc = port_encode.encode_model(variant, caps)
     assert enc.gb_mask.sum() == 0
-    check_supported(caps)
+    assert kernel_refusal(caps) is None
 
 
 def test_adapt_guard_skips_gather_candidates():
@@ -509,7 +509,7 @@ def test_adaptive_engine_vs_exact(tmp_path):
 
 
 def test_want_split_gate():
-    """The port's gate: split where the sweep takes the plain caps but
+    """The port's gate: split where the kernel takes the plain caps but
     refuses the collapse-headroom caps (the Promedus-shaped net), a
     single group where it takes both (the 10x10 grid); on/off override."""
     grid = torch_models.grid(port_pgm, 10, seed=1)

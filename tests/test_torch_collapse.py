@@ -17,7 +17,7 @@ import grample_tpu_torch.sampler.collapse as port_collapse
 from grample_tpu import cli as ref_cli
 from grample_tpu_torch import cli as port_cli
 from grample_tpu_torch.convert import chains_from_reference, encoding_from_reference
-from grample_tpu_torch.ops.sweep import check_supported, sweep_tensors
+from grample_tpu_torch.ops.sweep import kernel_refusal, sweep_tensors
 from grample_tpu_torch.pgm.exact import exact_marginals
 from grample_tpu_torch.uai.writer import write_mar, write_model
 
@@ -146,7 +146,7 @@ def test_dense_guard_and_headroom_caps_match_reference():
         variant, _ = mod.collapse_var(m, 0)
         caps = enc.merge_caps(caps, enc.compute_caps(variant, oa_dense_cap=caps.oa_dense_cap))
         assert enc.encode_model(variant, caps).gb_mask.sum() == 0
-    check_supported(caps)
+    assert kernel_refusal(caps) is None
 
 
 def _caps_fields(caps):
@@ -168,7 +168,7 @@ def test_caps_for_variants_matches_reference(names, slot_hint):
     got = port_encode.caps_for_variants(port_vs, slot_hint=slot_hint)
     assert _caps_fields(got) == _caps_fields(want)
     assert got.gfac_cap == 0 and got.oa_cap > 32
-    check_supported(got)
+    assert kernel_refusal(got) is None
     with pytest.raises(ValueError, match="empty"):
         port_encode.caps_for_variants([])
 
@@ -229,7 +229,7 @@ def test_promedus_like_variants_match_reference():
         encs[enc] = enc.encode_model(variants[0], caps[enc]).arrays()
     assert _caps_fields(caps[port_encode]) == _caps_fields(caps[ref_encode])
     assert caps[port_encode].oa_cap == 256
-    check_supported(caps[port_encode])
+    assert kernel_refusal(caps[port_encode]) is None
     for key, arr in encs[port_encode].items():
         np.testing.assert_array_equal(arr, encs[ref_encode][key], err_msg=key)
 

@@ -137,7 +137,7 @@ def _wide_encs(name):
     else:
         variants = [torch_models.collapsed(port_pgm, name)[1]] * 2
     caps = port_encode.caps_for_variants(variants, slot_hint=len(variants))
-    sweep.check_supported(caps)
+    assert sweep.kernel_refusal(caps) is None
     return [port_encode.encode_model(v, caps) for v in variants], caps.oa_cap, caps.scope_cap
 
 
@@ -215,7 +215,7 @@ def _headroom_encs(case):
         caps = aux_caps(m)
         assert caps.oa_cap == 256 and caps.num_rows == 4200
         variants = [collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
-    sweep.check_supported(caps)
+    assert sweep.kernel_refusal(caps) is None
     return [port_encode.encode_model(v, caps) for v in variants]
 
 
@@ -360,3 +360,86 @@ def test_sharded_over_two_cards(cuda_device):
         x.burn(3)
         x.advance()
     _assert_shards_equal(g, p)
+
+
+# ---- the torch-ops route on the card -------------------------------------------
+
+def _all_gather(caps):
+    import dataclasses
+
+    return dataclasses.replace(caps, base_mode="gather", adj_cap=0, oa_cap=1,
+                               gfac_cap=caps.adj_cap + caps.gfac_cap)
+
+
+@pytest.mark.parametrize("name", ["star10_c0", "promedus8", "rand8_card4"])
+def test_ops_route_matches_kernel_on_card(cuda_device, name):
+    """One model encoded dense, through the CUDA kernel, and all-gather,
+    through ``window_ops`` on the card, same seed and state: both banks
+    are summed in factor order, so at most 0.1 % of sites differ (the
+    kernel's ``expf`` against ``torch.exp`` on a CDF boundary), counts
+    agree where the states agree, and the ops route on the dense encoding
+    equals the plain version exactly."""
+    from grample_tpu_torch.ops.gibbs_bank import window_ops
+
+    if name == "rand8_card4":
+        m = torch_models.build(port_pgm, name)
+        caps = port_encode.compute_caps(m, headroom_factors=0)
+        variants = [m, m]
+    else:
+        encs, _, _ = _wide_encs(name)
+        caps = encs[0].caps
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+        m.apply_evidence(evidence)
+        variants = ([collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
+                    if name == "promedus8" else [torch_models.collapsed(port_pgm, name)[1]] * 2)
+    dense = [port_encode.encode_model(v, caps) for v in variants]
+    gather = [port_encode.encode_model(v, _all_gather(caps)) for v in variants]
+    kd = sweep.sweep_tensors(port_encode.stack_variants(dense), cuda_device)
+    kg = sweep.sweep_tensors(port_encode.stack_variants(gather), cuda_device, compact=False)
+    assert torch.equal(kd["pal_oon"], kg["pal_oon"])
+    n, c, nslot = len(variants), 2048, caps.num_slots
+    rng = np.random.default_rng(4)
+    cards = np.stack([e.cards for e in dense])[np.arange(n)[:, None], kd["pal_oon"].cpu().numpy()]
+    state = torch.as_tensor(np.floor(rng.random((n, caps.num_rows, c)) * cards[:, :, None])
+                            .astype(np.int32), device=cuda_device)
+    sk, ck = gibbs_cuda.gibbs_window(kd, state.clone(), 11, 1, 0, True, 512)
+    so, co = window_ops(kg, state.clone(), 11, 1, 0, True, 512)
+    assert so.is_cuda and co.is_cuda
+    assert (sk[:, :nslot] != so[:, :nslot]).float().mean().item() <= 1e-3
+    agree = (sk[:, :nslot] == so[:, :nslot]).all(dim=0)
+    assert torch.equal(ck[:, :, :, agree], co[:, :, :, agree])
+    assert ck.sum().item() == co.sum().item()
+    sp, cp = window_plain(*[kd[k] for k in sweep.KERNEL_KEYS], state.clone(), 11, 2, 1, True, 512)
+    sd, cd = window_ops(kd, state.clone(), 11, 2, 1, True, 512)
+    assert torch.equal(sd, sp) and torch.equal(cd, cp)
+
+
+def test_eligible_caps_on_card_never_take_the_ops_route(cuda_device, monkeypatch):
+    """A group whose caps pass the kernel's gate launches the kernel and
+    nothing else on a CUDA tensor; a group on gather caps launches no
+    kernel."""
+    from grample_tpu_torch.ops import gibbs_bank
+
+    m = torch_models.build(port_pgm, "grid4_evid")
+    g = ChainGroup(m, 256, 8, cuda_device, seed=1)
+    assert g.route == "kernel"
+    g.add_variants([m, m])
+    ops_before, kernel_before = gibbs_bank.window_ops.launches, gibbs_cuda.gibbs_window.launches
+    monkeypatch.setattr(sweep, "window_plain",
+                        lambda *a, **k: pytest.fail("the plain version ran on a CUDA tensor"))
+    g.burn(2)
+    g.advance()
+    assert gibbs_bank.window_ops.launches == ops_before
+    assert gibbs_cuda.gibbs_window.launches == kernel_before + 2
+    caps = _all_gather(port_encode.compute_caps(m, headroom_factors=0))
+    h = ChainGroup(m, 256, 8, cuda_device, seed=1, caps=caps)
+    assert h.route == "ops"
+    h.add_variants([m, m])
+    h.burn(2)
+    h.advance()
+    assert gibbs_cuda.gibbs_window.launches == kernel_before + 2
+    assert gibbs_bank.window_ops.launches == ops_before + 2
+    # the same seeds and hash cells on both routes: the chains agree but
+    # for draws on a CDF boundary
+    assert (h.state != g.state).float().mean().item() <= 1e-3
+    assert h.totals.sum() == g.totals.sum()

@@ -17,7 +17,7 @@ import grample_tpu_torch.pgm.discrete as port_pgm
 import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu.ops.gibbs_pallas import _hash_uniform, advance_chains_pallas, pal_bank_dims, pallas_stack
 from grample_tpu_torch.convert import chains_from_reference, encoding_from_reference
-from grample_tpu_torch.ops import _build, gibbs_cuda, sweep
+from grample_tpu_torch.ops import _build, gibbs_bank, gibbs_cuda, sweep
 from grample_tpu_torch.ops.gibbs_torch import hash_uniform
 
 from tests import torch_models
@@ -165,19 +165,27 @@ def _caps_of(name, **kw):
 
 @pytest.mark.parametrize("case", ["gather_bank", "card17", "rows", "oa"])
 def test_gate_refuses(case):
-    """The sweep refuses what its kernel does not take, with a reason."""
-    import dataclasses
-
+    """The kernel's gate names what the kernel does not take; the sweep
+    takes it all the same, by the torch-ops route."""
     caps = _caps_of("rand6")
-    sweep.check_supported(caps)
-    bad = {
-        "gather_bank": dataclasses.replace(caps, gfac_cap=1),
-        "card17": dataclasses.replace(caps, max_card=17),
-        "rows": dataclasses.replace(caps, tail_cap=80000),
-        "oa": dataclasses.replace(caps, oa_cap=sweep.OA_MAX + 1),
+    assert sweep.kernel_refusal(caps) is None and sweep.route_for(caps) == "kernel"
+    bad, reason = {
+        "gather_bank": (dataclasses.replace(caps, gfac_cap=1), "gather bank"),
+        "card17": (dataclasses.replace(caps, max_card=17), "max card"),
+        "rows": (dataclasses.replace(caps, tail_cap=80000), "shared memory"),
+        "oa": (dataclasses.replace(caps, oa_cap=sweep.OA_MAX + 1), "local tables"),
     }[case]
-    with pytest.raises(ValueError, match="gather bank|max card|shared memory|local tables"):
-        sweep.check_supported(bad)
+    assert reason in sweep.kernel_refusal(bad)
+    assert sweep.route_for(bad) == "ops"
+    sweep.check_supported(bad)
+
+
+def test_gate_refuses_what_no_route_takes():
+    """Both routes index with int32 inside one variant (reference
+    ``gibbs_xla.py:133-134``): a longer flat table is refused."""
+    caps = dataclasses.replace(_caps_of("rand6"), table_cap=2 ** 31)
+    with pytest.raises(ValueError, match="int32"):
+        sweep.check_supported(caps)
 
 
 def test_gate_admits_wide_tables():
@@ -187,12 +195,16 @@ def test_gate_admits_wide_tables():
     m = torch_models.wide_factor(port_pgm, 10, seed=2)
     caps = port_encode.compute_caps(m, headroom_factors=0)
     assert caps.oa_cap == 512 and caps.gfac_cap == 0
-    sweep.check_supported(caps)
+    assert sweep.kernel_refusal(caps) is None
 
 
 def test_gate_refuses_gather_model():
-    """A real model whose encoding needs the gather bank is refused by the
-    chain runtime before any sweep runs."""
+    """A real model whose encoding needs the gather bank is not refused by
+    the chain runtime: the kernel's gate names the bank, the group takes
+    the torch-ops route, and its marginals match exact.  32768 counted
+    samples per var: 5 sigma(H) = 5 / sqrt(8 n) = 0.0098."""
+    from grample_tpu_torch.metrics import hellinger
+    from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.chains import ChainGroup
 
     rng = np.random.default_rng(0)
@@ -203,8 +215,51 @@ def test_gate_refuses_gather_model():
     caps = port_encode.compute_caps(m, headroom_factors=0, oa_dense_cap=32,
                                     slot_hint=1 << 40)
     assert caps.gfac_cap > 0
-    with pytest.raises(ValueError, match="gather bank"):
-        ChainGroup(m, 8, 4, device="cpu", caps=caps)
+    assert "gather bank" in sweep.kernel_refusal(caps)
+    g = ChainGroup(m, 256, 64, device="cpu", caps=caps, seed=3)
+    assert g.route == "ops"
+    g.add_variants([m, m])
+    g.burn(16)
+    before = dict(gibbs_bank.window_ops.launches_by_form)
+    g.advance()
+    assert gibbs_bank.window_ops.launches_by_form["torch ops, counted"] \
+        == before.get("torch ops, counted", 0) + 1
+    got = g.merged_marginals()
+    got = got / got.sum(axis=1, keepdims=True)
+    assert hellinger(got, exact_marginals(m), np.full(v, 2)).max() < 5 / np.sqrt(8 * 32768)
+
+
+def test_kernel_route_on_cuda_never_takes_ops_or_plain(monkeypatch):
+    """Kernel-eligible caps on a CUDA tensor launch the kernel wrapper and
+    nothing else: neither the torch-ops route nor the plain version is
+    called, and a failing launch raises through."""
+    m = torch_models.build(port_pgm, "grid3")
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    assert sweep.route_for(enc.caps) == "kernel"
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc]), "cpu")
+
+    class OnCard:
+        is_cuda = True
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor left the kernel")
+
+    calls = []
+    monkeypatch.setattr(sweep, "window_ops", refuse)
+    monkeypatch.setattr(sweep, "window_plain", refuse)
+    monkeypatch.setattr(gibbs_cuda, "gibbs_window", lambda *a: calls.append(a) or "launched")
+    state = OnCard()
+    assert sweep.window(kst, state, 1, 2, 1, True, 8, route="kernel") == "launched"
+    assert calls == [(kst, state, 1, 2, 1, True, 8)]
+
+    def broken(*a):
+        raise RuntimeError("gibbs_window_launch failed: CUDA error 700")
+
+    monkeypatch.setattr(gibbs_cuda, "gibbs_window", broken)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        sweep.window(kst, state, 1, 2, 1, True, 8, route="kernel")
+    with pytest.raises(ValueError, match="unknown sweep route"):
+        sweep.window(kst, state, 1, 2, 1, True, 8, route="auto")
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
@@ -253,7 +308,7 @@ def test_headroom_window_matches_pallas_kernel(case, sweeps, count):
     variants, caps, m = torch_models.headroom_variants(ref_pgm, case)
     pvariants, pcaps, _ = torch_models.headroom_variants(port_pgm, case)
     assert dataclasses.asdict(pcaps) == {**dataclasses.asdict(caps), "base_mode": "rowgather"}
-    sweep.check_supported(pcaps)
+    assert sweep.kernel_refusal(pcaps) is None
     encs = [ref_encode.encode_model(v, dataclasses.replace(caps, base_mode="matmul"))
             for v in variants]
     for pv, v, enc in zip(pvariants, variants, encs):
