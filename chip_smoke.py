@@ -92,6 +92,21 @@ non-zero:
   4i. ``sample -s simple`` on one 12-var binary factor plus unaries (a
      mixed encoding: the wide factor in the gather bank, the unaries
      dense) against exact marginals, the bound of phase 4;
+  4j. ``sample --distributed`` as two rank processes on the one card
+     (torchrun's variables: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
+     127.0.0.1, a free ``MASTER_PORT``; both see ``cuda:0``; each under a
+     timeout): (a) ``-s simple`` on the 10x10 grid, 2 x 131072 chains,
+     over a 1x2 world mesh, stopped by ``-i`` after its first window:
+     rank 0's MAR must equal, byte for byte, a one-process unsharded run's
+     with the same seed; (b) ``-s adaptive -c 2 --vchains 131072 -a 2``
+     for ``RANKS_ADAPT_SECS`` on the 4x4 grid of phase 4 over a 2x1 world
+     mesh: both ranks exit 0 and log the same adapt steps, the same
+     Hellinger bound, its counted site-samples/s beside 4f's; (c) the
+     same for ``RANKS_CKPT_SECS`` with a checkpoint, which one unsharded
+     process resumes.  Each rank prints its kernel launches and the host
+     milliseconds of its collectives (the all-reduce of a flush, of the
+     PSRF moments, of the RB blanket indices and of the gathers, rank 0's
+     broadcasts) and of its checkpoint saves;
   5. timing (CUDA events; each line names the card and its power limit):
      the 10x10 grid at 262144 chains, one 256-sweep window, each kernel
      form and plain; the headroom encodings of 3c; the 8 Promedus-shaped
@@ -126,9 +141,11 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import platform
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -172,6 +189,50 @@ OPS_SECS = 20
 #: a burn-in of 10 sweeps, and vars collapsed late hold few RB snapshots;
 #: a wrong table lookup shows as 0.1 and more
 OPS_HELL_BOUND = 0.02
+#: sampling-clock budgets (s) of phase 4j: the adaptive run over two ranks,
+#: the same with a checkpoint, and what the one-process run that resumes
+#: it adds to the snapshot's clock
+RANKS_ADAPT_SECS, RANKS_CKPT_SECS, RESUME_SECS = 15, 3, 4
+#: seconds a 4j rank process may take before the script fails
+RANK_TIMEOUT = 240
+#: one rank of phase 4j: the CLI under torchrun's variables, then one line
+#: with this rank's kernel launches by form and, for each caller of a
+#: collective (a group method for the all-reduces, the engine's ``_run``
+#: for rank 0's broadcasts, ``save_checkpoint`` for the saves), its calls,
+#: host milliseconds in all and the least of one call: a call's time
+#: includes its wait for the other rank
+RANK_CHILD = r"""
+import collections, json, os, sys, time
+from grample_tpu_torch import cli
+from grample_tpu_torch.ops import gibbs_cuda
+from grample_tpu_torch.parallel import distributed
+from grample_tpu_torch.sampler import checkpoint
+
+held = collections.defaultdict(lambda: [0, 0.0, float("inf")])
+
+def timed(fn, depth):
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        entry = held[sys._getframe(depth).f_code.co_name]
+        entry[0] += 1
+        entry[1] += ms
+        entry[2] = min(entry[2], ms)
+        return out
+    return call
+
+distributed.allreduce_sum = timed(distributed.allreduce_sum, 2)
+distributed.from_main = timed(distributed.from_main, 1)
+checkpoint.save_checkpoint = timed(checkpoint.save_checkpoint, 1)
+rc = cli.main(sys.argv[1:])
+print("4j rank " + json.dumps({"rank": int(os.environ["RANK"]),
+                               "launches": dict(gibbs_cuda.gibbs_window.launches_by_form),
+                               "collectives": held}), flush=True)
+sys.exit(rc)
+"""
+REPO = os.path.dirname(os.path.abspath(__file__))
+
 #: the card's peaks for ``bound_ms``: device memory rate (H100 SXM data
 #: sheet) and thread operations per clock (132 SMs x 4 schedulers x 32
 #: lanes); the clock is the card's ``clocks.max.sm``
@@ -491,6 +552,41 @@ def cpu_name() -> str:
     return f"{platform.machine()} CPU, model not reported"
 
 
+def run_ranks(argv, label):
+    """``sample ... argv`` as two rank processes of one world on the card
+    (``RANK_CHILD``); returns each rank's output and its ``4j rank``
+    record.  A rank that fails or outlives ``RANK_TIMEOUT`` fails the
+    script, and no rank outlives this call."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_CHILD, *argv], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port))) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    records = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("4j rank ")]
+        check(len(line) == 1, f"{label}: rank {r} printed no launch record")
+        records.append(json.loads(line[0][len("4j rank "):]))
+        print(line[0], flush=True)
+    return outs, records
+
+
+def adapt_picks(log):
+    """Each ADAPT line of a log without its host seconds."""
+    return [ln.split(" in ")[0] for ln in log.splitlines() if ln.startswith("ADAPT: ")]
+
+
 def kernel_order(torch, kst, state):
     """Chain state [N, C, V+1] in the kernel's row order [N, NVp, C], as
     ``ops.sweep.advance_chains`` hands it to the kernel."""
@@ -525,7 +621,7 @@ def main() -> int:
     from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh, shard_seed
     from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.chains import ChainGroup, window_seed
-    from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
+    from grample_tpu_torch.sampler.checkpoint import load_checkpoint, read_meta, save_checkpoint
     from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
     from grample_tpu_torch.sampler.split import AUX_CHAINS
@@ -917,6 +1013,7 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches_m = read_counts("4f")
+        rate_4f = res.samples_per_sec
         mesh_line = [ln for ln in lines if ln.startswith("device mesh:")]
         steps = adapt_secs("\n".join(lines))
         check(mesh_line == ["device mesh: {'variants': 2, 'chains': 2} over 4 devices"],
@@ -976,6 +1073,102 @@ def main() -> int:
               f"samples: {a_rate:.4e} samples/s on one core of the host ({cpu_name()}; a host "
               f"figure, beside the card {card}), max Hellinger {a_score.max_hellinger:.6f} "
               f"(bound 0.02); native tokenizer's model equals the portable one's", flush=True)
+
+        # ---- 4j. --distributed: two rank processes on the card ------------------
+        rank_launches = {}
+
+        def add_launches(records):
+            for rec in records:
+                for form, n in rec["launches"].items():
+                    rank_launches[form] = rank_launches.get(form, 0) + n
+
+        def collective_ms(records):
+            return "; ".join(
+                f"rank {rec['rank']}: " + ", ".join(
+                    f"{who} {n} calls, {ms / n:.3f} ms a call (least {least:.3f})"
+                    for who, (n, ms, least) in sorted(rec["collectives"].items()))
+                for rec in records)
+
+        gmodel = grid_model(10, 1)
+        gpath = write_net(td, "grid10", gmodel, {0: 1, 55: 0, 99: 1})
+        gv = gmodel.num_vars
+        argv_a = ["sample", "-m", gpath, "-d", "-s", "simple", "--vchains", str(GRID_CHAINS),
+                  "-b", str(100 * gv), "-w", str(100 * gv), "-i", "1", "-e", str(SEED)]
+        mar_ranks, mar_one = os.path.join(td, "4j_ranks.MAR"), os.path.join(td, "4j_one.MAR")
+        t0 = time.perf_counter()
+        outs, records = run_ranks(
+            argv_a + ["--distributed", "--mesh", "1x2", "--mar-out", mar_ranks], "4j (a)")
+        secs_a = time.perf_counter() - t0
+        add_launches(records)
+        check("device mesh: {'variants': 1, 'chains': 2} over 2 devices of 2 ranks" in outs[0],
+              "4j (a): no world mesh line")
+        rc, _ = run_cli(cli, argv_a + ["--mar-out", mar_one])
+        with open(mar_ranks) as fh_r, open(mar_one) as fh_o:
+            same = fh_r.read() == fh_o.read()
+        check(rc == 0 and same, "4j (a): rank 0's MAR differs from the one-process run's")
+        print(f"4j (a) ({card}): sample -s simple -i 1 on the 10x10 grid, 2 x {GRID_CHAINS} "
+              f"chains over a 1x2 world mesh of two rank processes: rank 0's MAR equals the "
+              f"one-process unsharded run's byte for byte; {secs_a:.1f} s wall with process "
+              f"start; launches {[rec['launches'] for rec in records]}; collectives "
+              f"{collective_ms(records)}", flush=True)
+
+        mar_b, trace_b = os.path.join(td, "4j.MAR"), os.path.join(td, "4j.t")
+        argv_b = ["sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2",
+                  "--vchains", str(GRID_CHAINS), "-a", "2", "-b", str(200 * v),
+                  "-w", str(100 * v), "-e", str(SEED)]
+        t0 = time.perf_counter()
+        outs, records = run_ranks(
+            argv_b + ["-x", str(RANKS_ADAPT_SECS), "--distributed", "--mesh", "2x1",
+                      "--mar-out", mar_b, "-t", trace_b], "4j (b)")
+        secs_b = time.perf_counter() - t0
+        add_launches(records)
+        picks = [adapt_picks(out) for out in outs]
+        res_b = summary(trace_b)
+        check(picks[0] and picks[0] == picks[1],
+              f"4j (b): the ranks' adapt steps differ: {picks}")
+        est = pad_marginals(read_mar_file(mar_b), model.cards)
+        b_score = error_suite(est, truth, model_ev.cards, model_ev.fixed, None)
+        check(np.isfinite(est).all() and b_score.max_hellinger < HELL_BOUND,
+              f"4j (b): max Hellinger {b_score.max_hellinger:.5f} >= {HELL_BOUND}")
+        print(f"4j (b) ({card_line()}): sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 "
+              f"-x {RANKS_ADAPT_SECS} over a 2x1 world mesh of two rank processes on one card: "
+              f"{secs_b:.1f} s wall with process start; both ranks: {picks[0]}; collapsed vars "
+              f"{res_b['collapsed']}, {res_b['variants']} variants; "
+              f"{res_b['samples_per_sec']:.4e} counted site-samples/s over "
+              f"{res_b['runtime']:.2f} s of sampling clock (4f, one process over a 2x2 virtual "
+              f"mesh: {rate_4f:.4e}; one card shared by two processes: no scaling figure); max "
+              f"Hellinger {b_score.max_hellinger:.6f} (bound {HELL_BOUND}); launches "
+              f"{[rec['launches'] for rec in records]}; collectives {collective_ms(records)}",
+              flush=True)
+
+        ck = os.path.join(td, "4j_ck.npz")
+        t0 = time.perf_counter()
+        outs, records = run_ranks(
+            argv_b + ["-x", str(RANKS_CKPT_SECS), "--checkpoint", ck, "--checkpoint-secs", "2",
+                      "--distributed", "--mesh", "2x1"], "4j (c)")
+        secs_c = time.perf_counter() - t0
+        add_launches(records)
+        path_launches["4j"] = rank_launches
+        ops_windows["4j"] = {}
+        meta1 = read_meta(ck)
+        trace_c = os.path.join(td, "4j_resume.t")
+        reset_counts()
+        # the snapshot's clock (its save included) is spent: give more
+        rc, log = run_cli(cli, argv_b + [
+            "-x", str(math.ceil(meta1["runtime"]) + RESUME_SECS), "--checkpoint", ck,
+            "--resume", "-t", trace_c])
+        launches_c = read_counts("4j resume")
+        res_c = summary(trace_c)
+        check(rc == 0 and "RESUMED" in log and "device mesh" not in log,
+              f"4j (c): the one-process run did not resume ({rc})")
+        check(launches_c > 0 and res_c["samples"] > meta1["total_samples"],
+              "4j (c): the resumed run did not go on")
+        print(f"4j (c): the same over the two ranks for {RANKS_CKPT_SECS} s with --checkpoint "
+              f"({secs_c:.1f} s wall with process start; collectives and saves "
+              f"{collective_ms(records)}), {meta1['slot_cap']} slots saved after "
+              f"{meta1['runtime']:.2f} s of clock, resumed by one unsharded process for "
+              f"{RESUME_SECS} s more: {meta1['total_samples']:,} -> {res_c['samples']:,} "
+              f"samples, {launches_c} kernel launches after resume", flush=True)
 
     # ---- 5. timing ---------------------------------------------------------
     def timed(fn, st0, sweeps, count=True, cb=cb) -> float:
@@ -1120,7 +1313,7 @@ def main() -> int:
           f"window {kernel_ms:.3f} ms ({gibbs_cuda.form_name(sh_plan)}; one card, one stream: "
           f"no scaling figure)", flush=True)
     record("gibbs_window (sharded launch)", "grample_tpu/parallel/mesh.py:137",
-           of_phases("4f"), max(shard_errs), sh_ms, sh_plain_ms, sh_bound)
+           of_phases("4f", "4j"), max(shard_errs), sh_ms, sh_plain_ms, sh_bound)
     del shard_kst, shard_state0
 
     wsites = WIDE_CHAINS * wn_free

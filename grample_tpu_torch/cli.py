@@ -14,10 +14,16 @@ same flags and derived defaults, on a PyTorch device:
     python -m grample_tpu_torch.cli collapse -m net.uai
     python -m grample_tpu_torch.cli dot -m net.uai
 
-``--distributed`` (multi-host) raises ``NotImplementedError`` naming its
-ROADMAP.md item, A11b: the reference addresses every host's devices from
-one program; PyTorch has no such runtime, so a multi-host run needs an
-engine whose every wall-clock decision is agreed between processes.
+A multi-host run starts one process per host, each owning the GPUs it
+sees, and joins them with ``--distributed`` (``torch.distributed`` over
+gloo, from torchrun's environment: ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``); the chain mesh then spans every host's
+GPUs, and rank 0 writes the outputs:
+
+    torchrun --nproc-per-node 1 --nnodes H ... -m grample_tpu_torch.cli sample -m net.uai -s adaptive --mesh auto --distributed
+
+``CUDA_VISIBLE_DEVICES`` splits a host between several processes.  A
+checkpoint path must name a file that every host sees.
 """
 
 from __future__ import annotations
@@ -95,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device mesh: off | auto | VxC (variants x chains), e.g. 2x4: "
                         "shard the chains over several GPUs")
     s.add_argument("--distributed", action="store_true",
-                   help="(multi-host runs are not ported: ROADMAP.md A11b)")
+                   help="join the ranks of a multi-host run (torchrun's environment: RANK, "
+                        "WORLD_SIZE, MASTER_ADDR, MASTER_PORT); the mesh spans every rank's "
+                        "GPUs, so it needs --mesh auto or VxC")
 
     c = sub.add_parser("collapse", parents=[common],
                        help="per-variable exact-collapse validation vs <model>.MAR")
@@ -110,14 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cmd_sample(args) -> int:
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed is not ported (ROADMAP.md A11b): one process drives "
-            "every GPU of its host (--mesh); a multi-host run needs an engine "
-            "whose wall-clock decisions (budget, adapt window, checkpoints) are "
-            "agreed between processes")
-
     from grample_tpu_torch.monitor import Monitor
+    from grample_tpu_torch.parallel import distributed
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
 
     cfg = EngineConfig(
@@ -150,19 +152,25 @@ def cmd_sample(args) -> int:
         split_group=args.split_group,
         reserve_slots=args.reserve,
         mesh=args.mesh,
+        distributed=args.distributed,
     )
     engine = Engine(cfg)  # checks the config before any work
+    if args.distributed:
+        # join the ranks before any device query (reference cli.py:101-107)
+        distributed.init_distributed()
     monitor = None
-    if args.addr:
-        monitor = Monitor(args.addr)
-        monitor.start()
-        print(f"monitor listening on :{monitor.port}/debug/vars")
-    engine.monitor = monitor
     try:
+        if args.addr and distributed.is_main():
+            monitor = Monitor(args.addr)
+            monitor.start()
+            print(f"monitor listening on :{monitor.port}/debug/vars")
+        engine.monitor = monitor
         engine.run()
     finally:
         if monitor:
             monitor.stop()
+        if args.distributed:
+            distributed.shutdown()
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Chains sharded over several devices, driven by one process.
+"""Chains sharded over several devices, of one process or of several.
 
 Counterpart of ``grample_tpu.parallel.mesh``.  The devices form a 2-D
 grid ``("variants", "chains")``:
@@ -10,16 +10,29 @@ grid ``("variants", "chains")``:
     ``cpv / cdim`` chains: pure data parallelism over Gibbs chains.
 
 The reference is one program that runs the sweep under ``shard_map`` and
-reduces with ``psum``.  The port keeps the single controller and drops
-the collectives: one Python process launches a window on each device in
-turn.  Launches are asynchronous and a sweep needs no communication, so
-the devices run side by side; the engine's wall-clock decisions (budget,
-adapt window, checkpoints) are taken once, by the one process, and cannot
-disagree between devices.  The reductions happen where the unsharded
-group already has them, on the host: each shard's window delta stays on
-its device until ``flush`` adds it into the float64 totals, and the PSRF
-moments of the shards (two [V] vectors and a count each) are summed
-before ``psrf_from_moments``.
+reduces with ``psum``.  The port launches a window on each of its
+devices in turn from Python: launches are asynchronous and a sweep needs
+no communication, so the devices run side by side.  The reductions
+happen where the unsharded group already has them, on the host: each
+shard's window delta stays on its device until ``flush`` adds it into
+the float64 totals, and the PSRF moments of the shards (two [V] vectors
+and a count each) are summed before ``psrf_from_moments``.
+
+**One process or several.**  A mesh built without ``ranks`` belongs to
+one process, which holds every shard.  A mesh over the devices of several
+processes (``ranks``: the owner of each grid position, from
+``parallel.distributed.world_devices``) gives each process the shards of
+its own positions only; every host read of the group is then a
+collective over ``torch.distributed`` that every rank makes, in the same
+order, because every rank makes the same calls on the group: ``flush``
+all-reduces the sum of its pending deltas once, the moments and the RB
+blanket indices are filled by their owners and all-reduced (each entry
+has one owner, so the sum is exact), and ``state``, ``halves`` and one
+slot's states are gathered the same way.  The shards' moments are summed
+in grid order after the reduction, so every rank, and a one-process
+group on a mesh of the same shape, gets the same float32 PSRF.  The
+wall-clock decisions that drive these calls are rank 0's
+(``sampler.engine``).
 
 **Draws do not depend on the mesh.**  The sweep's hash cell is ``seed +
 65537 * variant + 257 * (chain // cb)`` mod 2^32 (``ops.gibbs_torch.
@@ -29,21 +42,23 @@ window's seed plus ``65537 * v0 + 257 * (c0 // cb)``, so its local cells
 are the unsharded window's cells, provided ``cb`` divides the local chain
 width (``cb = hash_block(cpv // cdim)``).  A sharded group therefore
 equals a ``ChainGroup`` with the same ``cb`` and slot capacity bit for
-bit on state, halves and totals, on any mesh, and a checkpoint written
-on one mesh resumes on another (the snapshot carries ``cb``).  The
-reference instead folds the shard's grid position into its key
-(``mesh.py:131-136``), so its draws change with the mesh.
+bit on state, halves and totals, on any mesh and over any number of
+processes, and a checkpoint written on one mesh resumes on another (the
+snapshot carries ``cb``).  The reference instead folds the shard's grid
+position into its key (``mesh.py:131-136``), so its draws change with
+the mesh.
 
 **How the base class sees the tensors.**  ``ChainGroup`` touches its
 device tensors through a few small methods; this class replaces exactly
-those with loops over the shards (the hot ones: ``_advance_fn``,
-``_window_delta``, ``convergence``, ``_rb_index_rows``) or with slot-wise
-writes (``_place``, ``_write_slots``).  ``state`` and ``halves`` are
-read-only properties that gather the shards to the host, for the rare
-readers (a checkpoint, a test); nothing on the hot path reads them, and
-an assignment raises.  ``kstack`` is, per grid row, ``{device: sweep
-tensors}``: the chain shards of a row share the row's tensors, one copy
-per device, made when the row changes and not per window.
+those with loops over its shards (the hot ones: ``_advance_fn``,
+``_window_delta``, ``flush``, ``convergence``, ``_rb_index_rows``) or with
+slot-wise writes (``_place``, ``_write_slots``).  ``state`` and
+``halves`` are read-only properties that gather the shards to the host,
+for the rare readers (a checkpoint, a restack, a test); nothing on the
+hot path reads them, and an assignment raises.  ``kstack`` is, per grid
+row, ``{device: sweep tensors}`` for this process's devices of the row:
+the chain shards of a row share the row's tensors, one copy per device,
+made when the row changes and not per window.
 
 A device may appear several times in a mesh (``chain_mesh(devices=...)``):
 its shards then run one after the other on one stream.  That virtual mesh
@@ -73,6 +88,7 @@ from grample_tpu_torch.ops.sweep import (
     to_device,
     write_slots,
 )
+from grample_tpu_torch.parallel import distributed
 from grample_tpu_torch.sampler.chains import ChainGroup, _rb_indices
 
 VARIANT_AXIS = "variants"
@@ -81,9 +97,12 @@ CHAIN_AXIS = "chains"
 
 @dataclasses.dataclass(frozen=True)
 class ChainMesh:
-    """A ``(variants, chains)`` grid of devices: ``devices[vi][ci]``."""
+    """A ``(variants, chains)`` grid of devices: ``devices[vi][ci]``, owned
+    by the ranks ``ranks[vi][ci]``, or by this one process (``ranks``
+    None)."""
 
     devices: tuple
+    ranks: Optional[tuple] = None
 
     @property
     def shape(self) -> dict:
@@ -93,17 +112,24 @@ class ChainMesh:
     def size(self) -> int:
         return len(self.devices) * len(self.devices[0])
 
+    def owns(self, vi: int, ci: int) -> bool:
+        """Whether this process holds grid position (vi, ci)."""
+        return self.ranks is None or self.ranks[vi][ci] == distributed.rank()
+
 
 def chain_mesh(n_devices: Optional[int] = None, variant_ways: int = 0,
-               devices: Optional[Sequence] = None) -> ChainMesh:
+               devices: Optional[Sequence] = None,
+               ranks: Optional[Sequence[int]] = None) -> ChainMesh:
     """Build the ``(variants, chains)`` device mesh.
 
     Without ``devices`` the mesh takes ``cuda:0 .. cuda:n-1``.  ``devices``
     is an explicit list that may name one device several times (a virtual
-    mesh, see the module doc).  ``n_devices`` takes the first so many and
-    raises when there are fewer.  ``variant_ways`` splits the grid between
-    the axes; by default variants get the largest power of two ``vw`` with
-    ``vw * vw * 4 <= n`` (reference ``mesh.py:63-68``).
+    mesh, see the module doc); ``ranks``, beside it, names the process
+    that owns each (``distributed.world_devices``), for a mesh over the
+    devices of several processes.  ``n_devices`` takes the first so many
+    and raises when there are fewer.  ``variant_ways`` splits the grid
+    between the axes; by default variants get the largest power of two
+    ``vw`` with ``vw * vw * 4 <= n`` (reference ``mesh.py:63-68``).
     """
     if devices is None:
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -112,7 +138,7 @@ def chain_mesh(n_devices: Optional[int] = None, variant_ways: int = 0,
     if n_devices is not None:
         if n_devices > len(devs):
             raise ValueError(f"a mesh of {n_devices} devices needs that many; "
-                             f"this machine has {len(devs)}")
+                             f"this {'world' if ranks else 'machine'} has {len(devs)}")
         devs = devs[:n_devices]
     n = len(devs)
     if n == 0:
@@ -124,8 +150,11 @@ def chain_mesh(n_devices: Optional[int] = None, variant_ways: int = 0,
     if n % variant_ways != 0:
         raise ValueError(f"{n} devices not divisible by variant_ways={variant_ways}")
     cways = n // variant_ways
-    return ChainMesh(tuple(tuple(devs[vi * cways:(vi + 1) * cways])
-                           for vi in range(variant_ways)))
+
+    def grid(seq):
+        return tuple(tuple(seq[vi * cways:(vi + 1) * cways]) for vi in range(variant_ways))
+
+    return ChainMesh(grid(devs), None if ranks is None else grid(list(ranks)[:n]))
 
 
 def shard_seed(seed: int, v0: int, block0: int) -> int:
@@ -157,13 +186,16 @@ class ShardedChainGroup(ChainGroup):
     multiple of the mesh's ``chains`` extent; the slot capacity is
     rounded up to a multiple of its ``variants`` extent.  ``device`` is
     accepted, so that one factory can build either class, and ignored:
-    the mesh names the devices.
+    the mesh names the devices.  Over the devices of several processes,
+    each holds the shards of its own grid positions and every process
+    makes the same calls (see the module doc).
     """
 
     def __init__(self, base_model, chains_per_variant: int, converge_window: int,
                  device=None, *, mesh: Optional[ChainMesh] = None, **kw):
         self.mesh = mesh or chain_mesh()
         self.shards: List[Shard] = []
+        self._placed = 0  # the slot capacity the shards were cut for
         super().__init__(base_model, chains_per_variant, converge_window,
                          self.mesh.devices[0][0], **kw)
         cdim = self.mesh.shape[CHAIN_AXIS]
@@ -186,12 +218,17 @@ class ShardedChainGroup(ChainGroup):
         return -(-max(slot_cap, 1) // vdim) * vdim
 
     def _row(self, vi: int) -> List[Shard]:
-        cdim = self.mesh.shape[CHAIN_AXIS]
-        return self.shards[vi * cdim:(vi + 1) * cdim]
+        """This process's shards of grid row ``vi``."""
+        return [sh for sh in self.shards if sh.vi == vi]
+
+    def _reduce(self, arr: np.ndarray) -> np.ndarray:
+        """``arr`` summed over the mesh's processes (one process: as is)."""
+        return arr if self.mesh.ranks is None else distributed.allreduce_sum(arr)
 
     def active_shards(self):
         """(shard, active slots, the row's sweep tensors cut to them) for
-        every shard that holds a slot of the active prefix."""
+        every shard of this process that holds a slot of the active
+        prefix."""
         nact = max(1, self.num_variants)
         for sh in self.shards:
             na = min(nact - sh.v0, self.local_slots)
@@ -200,26 +237,36 @@ class ShardedChainGroup(ChainGroup):
                 yield sh, na, {k: v[:na] for k, v in kst.items()}
 
     # ---- the whole tensors, for the rare readers -------------------------
-    def _gather(self, name: str, chain_dim: int):
-        if not self.shards:
+    def _gather(self, name: str, inner: tuple, tail: tuple):
+        """Host copy [Ncap, *inner, C, *tail] of every shard's tensor
+        ``name``, at the capacity the shards were cut for (a restack reads
+        it before it cuts anew).  Each process fills its own blocks, and
+        the blocks of the others arrive by a sum (one owner per entry)."""
+        if not self._placed:
             return None
-        rows = [torch.cat([getattr(sh, name).cpu() for sh in self._row(vi)], dim=chain_dim)
-                for vi in range(self.mesh.shape[VARIANT_AXIS])]
-        return torch.cat(rows, dim=0)
+        out = np.zeros((self._placed, *inner, self.cpv, *tail), dtype=np.int32)
+        for sh in self.shards:
+            block = getattr(sh, name).cpu().numpy()
+            out[(slice(sh.v0, sh.v0 + block.shape[0]), *[slice(None)] * len(inner),
+                 slice(sh.c0, sh.c0 + self.local_chains))] = block
+        return torch.from_numpy(self._reduce(out))
 
     @property
     def state(self):
         """Host copy [Ncap, C, V+1] of every shard's chain states."""
-        return self._gather("state", 1)
+        return self._gather("state", (), (self.v1,))
 
     @property
     def halves(self):
         """Host copy [Ncap, 2, C, V+1, K] of every shard's window halves."""
-        return self._gather("halves", 2)
+        return self._gather("halves", (2,), (self.v1, self.kdim))
 
     def _slot_state(self, slot: int) -> np.ndarray:
         vi, loc = divmod(slot, self.local_slots)
-        return np.concatenate([sh.state[loc].cpu().numpy() for sh in self._row(vi)])
+        out = np.zeros((self.cpv, self.v1), dtype=np.int32)
+        for sh in self._row(vi):
+            out[sh.c0:sh.c0 + self.local_chains] = sh.state[loc].cpu().numpy()
+        return self._reduce(out)
 
     # ---- placement -------------------------------------------------------
     def _place(self, stack: dict, state: np.ndarray) -> None:
@@ -230,18 +277,25 @@ class ShardedChainGroup(ChainGroup):
         self._scatter(torch.as_tensor(state), None)
         nl = self.local_slots
         self.kstack = []
-        for vi, row in enumerate(self.mesh.devices):
-            kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
-                               self.route == "kernel")
-            self.kstack.append({dev: to_device(kst, dev) for dev in dict.fromkeys(row)})
+        for vi in range(self.mesh.shape[VARIANT_AXIS]):
+            devs = dict.fromkeys(sh.device for sh in self._row(vi))
+            row = {}
+            if devs:  # the rows of other processes stay empty
+                kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
+                                   self.route == "kernel")
+                row = {dev: to_device(kst, dev) for dev in devs}
+            self.kstack.append(row)
 
     def _scatter(self, state, halves) -> None:
-        """Rebuild the shards from whole tensors (any device); ``halves``
-        None starts the window halves at zero."""
+        """Rebuild this process's shards from whole tensors (any device);
+        ``halves`` None starts the window halves at zero."""
         nl, cl = self.local_slots, self.local_chains
         self.shards = []
+        self._placed = self.slot_cap
         for vi, row in enumerate(self.mesh.devices):
             for ci, dev in enumerate(row):
+                if not self.mesh.owns(vi, ci):
+                    continue
                 rows, cols = slice(vi * nl, (vi + 1) * nl), slice(ci * cl, (ci + 1) * cl)
                 hv = (torch.zeros((nl, 2, cl, self.v1, self.kdim), dtype=torch.int32, device=dev)
                       if halves is None else halves[rows, :, cols].to(dev).contiguous())
@@ -255,7 +309,7 @@ class ShardedChainGroup(ChainGroup):
             if not sel:
                 continue
             loc = [slots[i] - vi * nl for i in sel]
-            if stack is not None:
+            if stack is not None and self.kstack[vi]:
                 fresh = kernel_stack({k: v[sel] for k, v in stack.items()},
                                      self.route == "kernel")
                 for dev, kst in self.kstack[vi].items():
@@ -311,16 +365,24 @@ class ShardedChainGroup(ChainGroup):
         return [(sh.v0, sh.halves[:na].sum(dim=(1, 2)))
                 for sh, na, _ in self.active_shards()]
 
-    def _fold(self, delta, nact: int) -> None:
-        for v0, d in delta:
-            self.totals[v0:v0 + d.shape[0]] += d.cpu().numpy()
+    def flush(self) -> None:
+        """Fold the pending window deltas into the host totals: one sum
+        of the local deltas, reduced over the mesh's processes once."""
+        if not self._pending:
+            return
+        acc = np.zeros(self.totals.shape, dtype=np.int64)
+        for delta, _nact in self._pending:
+            for v0, d in delta:
+                acc[v0:v0 + d.shape[0]] += d.cpu().numpy()
+        self._pending.clear()
+        self.totals += self._reduce(acc)
 
     # ---- estimation ------------------------------------------------------
     def _rb_index_rows(self, states, slots, rest, strides) -> np.ndarray:
         if states is not None:  # another group's chains
             return super()._rb_index_rows(states, slots, rest, strides)
         nl, cl = self.local_slots, self.local_chains
-        out = np.empty((len(slots), self.cpv), dtype=np.int64)
+        out = np.zeros((len(slots), self.cpv), dtype=np.int64)
         for vi in range(self.mesh.shape[VARIANT_AXIS]):
             sel = np.nonzero(slots // nl == vi)[0]
             if not sel.size:
@@ -332,29 +394,35 @@ class ShardedChainGroup(ChainGroup):
                     torch.as_tensor(rest[sel], device=sh.device),
                     torch.as_tensor(strides[sel], device=sh.device),
                 ).cpu().numpy()
-        return out
+        return self._reduce(out)
 
     def moments(self, merged: np.ndarray, measure: str = "hellinger") -> tuple:
         """The PSRF moments ``(sum_w [V], sum_b [V], m)`` of all active
         chains: each shard's own (``metrics.psrf.convergence_moments``, on
-        its device), summed on the host, where the reference reduces with
-        ``psum`` over both axes (``mesh.py:201-203``)."""
+        its device), summed on the host in grid order, where the reference
+        reduces with ``psum`` over both axes (``mesh.py:201-203``)."""
         v = self.caps.num_vars
-        per_shard = []
+        vdim, cdim = self.mesh.shape[VARIANT_AXIS], self.mesh.shape[CHAIN_AXIS]
+        per = np.zeros((vdim * cdim, 2 * v + 1), dtype=np.float32)  # by grid position
         for sh, na, _ in self.active_shards():
             dev = sh.device
             h = sh.halves[:na, :, :, :v, :]  # [na, 2, c_local, V, K]
             m_chains = na * self.local_chains
-            per_shard.append(convergence_moments(
+            mo = convergence_moments(
                 h[:, 0].reshape(m_chains, v, self.kdim),
                 h[:, 1].reshape(m_chains, v, self.kdim),
                 torch.as_tensor(merged, dtype=torch.float32, device=dev),
                 torch.as_tensor(self.base.cards, dtype=torch.int32, device=dev),
                 torch.ones(m_chains, dtype=torch.bool, device=dev),
                 measure=measure,
-            ))
-        return tuple(torch.stack([mo[i].cpu() for mo in per_shard]).sum(dim=0)
-                     for i in range(3))
+            )
+            per[sh.vi * cdim + sh.ci] = torch.cat([mo[0], mo[1], mo[2][None]]).cpu().numpy()
+        per = torch.from_numpy(self._reduce(per))
+        nact = max(1, self.num_variants)
+        live = per[[vi * cdim + ci for vi in range(vdim) for ci in range(cdim)
+                    if vi * self.local_slots < nact]]
+        return tuple(live[:, cols].contiguous().sum(dim=0)
+                     for cols in (slice(0, v), slice(v, 2 * v), 2 * v))
 
     def convergence(self, measure: str = "hellinger",
                     merged: Optional[np.ndarray] = None) -> np.ndarray:

@@ -26,10 +26,10 @@ so a checkpoint that stores ``_step`` resumes bit for bit.
 
 Everything that touches the device tensors goes through a few small
 methods (``_place``, ``_write_slots``, ``_advance_fn``, ``_window_delta``,
-``_fold``, ``_slot_state``, ``_rb_index_rows``, ``_scaled``, ``warmup``,
+``flush``, ``_slot_state``, ``_rb_index_rows``, ``_scaled``, ``warmup``,
 ``restore_device_state``, ``convergence``): ``parallel.mesh.
 ShardedChainGroup`` replaces exactly those to keep the tensors in shards
-on several devices.
+on several devices, of one process or of several.
 
 Not ported: the reference's TPU workarounds (slot chunking, counted
 sub-windows, the compile-error fallback).

@@ -20,6 +20,13 @@ group's own fresh slots.  The port also records the hash lane width
 ``cb``, which a resumed group adopts where it divides the chains one
 launch advances, so that the run continues with the same draws on
 another mesh.
+
+Over the ranks of a ``torch.distributed`` run (``parallel.distributed``)
+a sharded group's gathers are collectives: every rank calls
+``save_checkpoint``, and rank 0 alone writes the file (a group of one
+process is written by that process, whatever its rank).  Every rank loads
+the same file, so it must be visible to every host; a snapshot written
+by N ranks loads like any other, on any mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.convert import chains_from_reference
+from grample_tpu_torch.parallel import distributed
 from grample_tpu_torch.pgm.discrete import DiscreteModel, Factor
 from grample_tpu_torch.sampler.chains import MAX_VARIANTS, ChainGroup
 from grample_tpu_torch.sampler.split import SplitChainGroup, aux_group_factory
@@ -150,6 +158,9 @@ def _save_one(path: str, group: ChainGroup, cfg=None, runtime: float = 0.0,
         arrays["rbp_ws"] = np.array([group._rbp_w[k] for k in rbp_keys], dtype=np.float64)
         arrays["rbp_snaps"] = np.array([group._rbp_snaps[k] for k in rbp_keys],
                                        dtype=np.int64)
+    mesh = getattr(group, "mesh", None)
+    if mesh is not None and mesh.ranks is not None and not distributed.is_main():
+        return  # the ranks gathered; rank 0 writes
     fd, tmp = tempfile.mkstemp(
         suffix=".npz", dir=os.path.dirname(os.path.abspath(path)) or ".")
     os.close(fd)

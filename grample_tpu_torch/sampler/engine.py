@@ -27,9 +27,21 @@ Reference flag units are single-site samples; the engine works in
 samples ≈ ``burnin / V`` sweeps, and the default burnin 2000·V gives
 2000 sweeps.
 
-``mesh`` shards the chains over several GPUs (``parallel.mesh``), all
-driven by this one process; a split group is not used under a mesh.
-Multi-host runs are not ported (ROADMAP.md A11b).
+``mesh`` shards the chains over several GPUs (``parallel.mesh``); a split
+group is not used under a mesh.  With ``distributed`` the mesh spans the
+devices of every rank of a ``torch.distributed`` process group
+(``parallel.distributed``), and every rank runs this engine on its own
+shards.  The ranks then make the same group calls in the same order:
+what the engine decides from reduced data (adapt targets, the sample
+cap, the reserve) comes out the same on every rank, and what it decides
+from a clock (the seed of ``--seed 0``, windows per tick, the budget's
+end, status ticks, the end of adaptation with its compensation, the
+checkpoint cadence, the runtime reported) is read on rank 0 and
+broadcast once per tick (``from_main``).  Rank 0 alone writes the trace,
+the MAR and the checkpoints (``sampler.checkpoint``) and logs; the other
+ranks log only their adapt steps, which must agree with rank 0's.  Every
+rank reads a checkpoint it resumes from, so the file must be visible to
+every host.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from grample_tpu_torch.metrics import ErrorSuite, error_suite
 from grample_tpu_torch.metrics.divergences import pad_marginals
 from grample_tpu_torch.pgm.discrete import DiscreteModel, norm_marginals
 from grample_tpu_torch.ops.sweep import kernel_refusal
+from grample_tpu_torch.parallel import distributed
 from grample_tpu_torch.pgm.encode import (
     COLLAPSE_OA_DENSE_CAP,
     caps_for_variants,
@@ -123,6 +136,10 @@ class EngineConfig:
     # there are several; "VxC" (e.g. "2x4") = an explicit (variants,
     # chains) grid, which needs V*C devices
     mesh: str = "off"
+    # run as one rank of a torch.distributed process group (joined first,
+    # ``parallel.distributed.init_distributed``): the mesh takes the
+    # devices of every rank; needs a mesh
+    distributed: bool = False
 
     def resolve_seed(self) -> int:
         if self.seed >= 1:
@@ -177,14 +194,17 @@ class Engine:
             vways, _, cways = cfg.mesh.partition("x")
             if not (vways.isdigit() and cways.isdigit() and int(vways) and int(cways)):
                 raise ValueError(f"unknown mesh {cfg.mesh!r}: off | auto | VxC")
+        if cfg.distributed and cfg.mesh in ("", "off"):
+            # the reference runs one group per rank here, each writing
+            # the same files
+            raise ValueError("--distributed needs a device mesh (--mesh auto or VxC): under "
+                             "--mesh off every rank would run a group of its own")
         self.cfg = cfg
         self.log = log
         self.monitor = monitor
         self.devices = devices
         self.trace_fh = None
         self._ops_logged = set()  # gate reasons already logged
-        if cfg.trace_path:
-            self.trace_fh = open(cfg.trace_path, "w")
 
     def trace(self, line: str):
         if self.trace_fh:
@@ -193,6 +213,13 @@ class Engine:
 
     # ------------------------------------------------------------------
     def run(self) -> RunResult:
+        if self.cfg.distributed and not torch.distributed.is_initialized():
+            raise RuntimeError("a distributed run needs its process group: call "
+                               "parallel.distributed.init_distributed() first")
+        if not self._main():
+            self.log = _adapt_lines(self.log)
+        elif self.cfg.trace_path:
+            self.trace_fh = open(self.cfg.trace_path, "w")
         try:
             return self._run()
         finally:
@@ -222,7 +249,7 @@ class Engine:
                 merlin = pad_marginals(read_mar_file(mer_path), model.cards)
 
         # ---- derived defaults (reference cmd/root.go:344-363) ----------
-        seed = cfg.resolve_seed()
+        seed = int(self._agreed([cfg.resolve_seed()])[0])
         burn_sweeps = 2000 if cfg.burnin < 0 else max(0, math.ceil(cfg.burnin / v))
         cw_sweeps = (
             burn_sweeps if cfg.converge_window <= 0
@@ -242,7 +269,8 @@ class Engine:
 
         adaptive = cfg.sampler == "adaptive"
         prior_runtime = 0.0
-        if cfg.resume and cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        if cfg.resume and cfg.checkpoint_path and self._agreed(
+                [os.path.exists(cfg.checkpoint_path)])[0]:
             group, meta = checkpoint.load_checkpoint(
                 cfg.checkpoint_path, model, make_group=self._resume_factory(cfg),
                 device=cfg.device)
@@ -317,26 +345,36 @@ class Engine:
         # bounded so the run cannot pass about twice its budget
         comp_left = 0.0 if cfg.budget == "wall" else max(60.0, cfg.max_secs)
         win_time = None  # EMA: measured seconds per counted window
+        nwin = 1
         while keep_working:
             # Launch a BATCH of windows with deferred count deltas (no host
             # sync between windows), sized so one batch ≈ the status
             # cadence (the reference's ~5 s scoring loop,
             # cmd/root.go:498-539).
-            if win_time is None:
-                nwin = 1
-            else:
-                budget = min(cfg.status_secs,
-                             ADAPT_TICK_WORK_SECS if keep_adapting else TICK_WORK_SECS,
-                             max(stop_time - time.time(), 0.25))
-                nwin = max(1, min(1024, int(budget / max(win_time, 1e-4))))
             t_w0 = time.time()
             for _ in range(nwin):
                 group.advance(cw_sweeps, defer=True)
             group.flush()
-            dt = (time.time() - t_w0) / nwin
-            win_time = dt if win_time is None else 0.5 * win_time + 0.5 * dt
             now = time.time()
-            if cfg.max_secs > 0 and now > stop_time:
+            dt = (now - t_w0) / nwin
+            win_time = dt if win_time is None else 0.5 * win_time + 0.5 * dt
+            # Every decision read from a clock is rank 0's: the ranks act on
+            # its readings, never on their own (one broadcast a tick).  The
+            # next batch is sized here, before this tick's adapt step, whose
+            # host time the budget's compensation gives back.
+            adapt_over = keep_adapting and now > no_adapt_time
+            budget = min(cfg.status_secs,
+                         ADAPT_TICK_WORK_SECS if keep_adapting and not adapt_over
+                         else TICK_WORK_SECS,
+                         max(stop_time - now, 0.25))
+            tick = self._agreed([
+                now - t_clock, cfg.max_secs > 0 and now > stop_time, now > next_status,
+                adapt_over, bool(cfg.checkpoint_path) and now > next_checkpoint,
+                max(1, min(1024, int(budget / max(win_time, 1e-4))))])
+            runtime = float(tick[0])
+            out_of_time, status_due, adapt_over, checkpoint_due = (bool(x) for x in tick[1:5])
+            nwin = int(tick[5])
+            if out_of_time:
                 keep_working = False
             if max_iters > 0 and group.total_samples > max_iters:
                 keep_working = False
@@ -345,9 +383,8 @@ class Engine:
             # apart, so chain states are decorrelated between snapshots
             group.rb_accumulate()
 
-            if now > next_status or not keep_working or cfg.experiment:
-                runtime = now - t_clock
-                if now > next_status or not keep_working:
+            if status_due or not keep_working or cfg.experiment:
+                if status_due or not keep_working:
                     rate = group.total_samples / max(runtime, 1e-9)
                     self.log(
                         f"  Samps: {group.total_samples:>14,d} | RT {runtime:10.2f}s"
@@ -356,7 +393,7 @@ class Engine:
                 if solution is not None:
                     merged = group.merged_marginals()
                     score = error_suite(merged, solution, model.cards, model.fixed, None)
-                    if now > next_status or not keep_working:
+                    if status_due or not keep_working:
                         self.log(score.report() if cfg.verbose else f"    {score}")
                     if cfg.experiment:
                         ncol = int(group.collapsed_any().sum())
@@ -371,10 +408,10 @@ class Engine:
                         chains=group.num_chains, variants=group.num_variants,
                         **(_score_vars(score) if score else {}),
                     )
-                if now > next_status:
+                if status_due:
                     next_status = now + cfg.status_secs
 
-            if keep_adapting and now > no_adapt_time:
+            if adapt_over:
                 self.log("STOPPING ADAPTATION")
                 keep_adapting = False
             if keep_working and keep_adapting:
@@ -397,12 +434,12 @@ class Engine:
                     )
                     self._log_route(group)  # grown caps may leave the kernel's gate
 
-            if cfg.checkpoint_path and time.time() > next_checkpoint:
+            if checkpoint_due:
                 self.save_checkpoint(group, prior_runtime + (time.time() - t_clock))
                 next_checkpoint = time.time() + cfg.checkpoint_secs
 
         # ---- final ------------------------------------------------------
-        runtime = time.time() - t_clock
+        runtime = float(self._agreed([time.time() - t_clock])[0])
         if isinstance(group, SplitChainGroup) and group.aux_ticks:
             self.log(
                 f"aux group: {group.aux_ticks} ticks, {group.aux_tick_sweeps} "
@@ -453,7 +490,7 @@ class Engine:
 
         self._final_trace(result, solution, merlin)
 
-        if cfg.mar_out:
+        if cfg.mar_out and self._main():
             from grample_tpu_torch.uai.writer import write_mar
 
             mars = [final[i, : model.cards[i]] for i in range(v)]
@@ -461,6 +498,18 @@ class Engine:
                 fh.write(write_mar(mars))
             self.log(f"Wrote MAR solution to {cfg.mar_out}")
         return result
+
+    def _main(self) -> bool:
+        """Whether this process writes the run's files and logs: always,
+        unless it is a rank other than 0 of a ``distributed`` run."""
+        return not self.cfg.distributed or distributed.is_main()
+
+    def _agreed(self, values) -> np.ndarray:
+        """``values`` (a short float vector) as rank 0 read them, under
+        ``distributed``; else this process's own."""
+        if self.cfg.distributed:
+            return distributed.from_main(values)
+        return np.asarray(values, dtype=np.float64)
 
     def _collapse_variants(self, model: DiscreteModel, n_slots: int,
                            seed: int) -> List[DiscreteModel]:
@@ -597,7 +646,8 @@ class Engine:
             if mesh is not None:
                 from grample_tpu_torch.parallel.mesh import ShardedChainGroup
 
-                self.log(f"device mesh: {mesh.shape} over {mesh.size} devices")
+                self.log(f"device mesh: {mesh.shape} over {mesh.size} devices"
+                         + ("" if mesh.ranks is None else f" of {distributed.world()} ranks"))
                 return ShardedChainGroup(model, mesh=mesh, **kw)
             if cfg.sampler == "adaptive" and self._want_split(cfg, model):
                 self.log("split group: plain slots on plain caps + "
@@ -612,7 +662,8 @@ class Engine:
         """The device mesh ``cfg.mesh`` asks for, or None: ``auto`` shards
         when there are several devices, ``VxC`` needs V*C of them.  The
         devices are the engine's explicit list, else every GPU, else (for
-        a CPU run) the one CPU."""
+        a CPU run) the one CPU; under ``distributed`` those of every rank,
+        in rank order."""
         if cfg.mesh in ("", "off"):
             return None
         from grample_tpu_torch.parallel.mesh import chain_mesh
@@ -620,12 +671,17 @@ class Engine:
         devices = self.devices
         if devices is None and torch.device(cfg.device).type != "cuda":
             devices = [cfg.device]
+        ranks = None
+        if cfg.distributed:
+            if devices is None:
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            devices, ranks = distributed.world_devices(devices)
         if cfg.mesh == "auto":
             n = torch.cuda.device_count() if devices is None else len(devices)
-            return chain_mesh(devices=devices) if n > 1 else None
+            return chain_mesh(devices=devices, ranks=ranks) if n > 1 else None
         vways, _, cways = cfg.mesh.partition("x")
         return chain_mesh(n_devices=int(vways) * int(cways), variant_ways=int(vways),
-                          devices=devices)
+                          devices=devices, ranks=ranks)
 
     def _resume_factory(self, cfg: EngineConfig):
         """Factory for a resumed non-split snapshot.  A ``-s collapsed``
@@ -687,6 +743,12 @@ class Engine:
         checkpoint.save_checkpoint(self.cfg.checkpoint_path, group, self.cfg,
                                    runtime=runtime)
         self.log(f"checkpoint -> {self.cfg.checkpoint_path}")
+
+
+def _adapt_lines(log: Callable[[str], None]) -> Callable[[str], None]:
+    """A rank's log other than rank 0's: its adapt steps only, the
+    decisions every rank takes and that must agree."""
+    return lambda line: line.startswith("ADAPT: ") and log(line)
 
 
 def _neglog2(x: float) -> float:

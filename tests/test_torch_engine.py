@@ -112,12 +112,19 @@ def test_maxiters_and_budget_modes(tmp_path, budget):
     assert res.sweeps == 30 + 50
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--distributed"], "A11b"),
+@pytest.mark.parametrize("argv,error", [
+    # the case that pinned the refusal of --distributed (ROADMAP A11b)
+    pytest.param(["--distributed", "--mesh", "auto"],
+                 "missing: RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT", id="argv0-A11b"),
+    pytest.param(["--distributed", "--mesh", "off"], "needs a device mesh", id="mesh-off"),
 ])
-def test_unported_options_raise(tmp_path, argv, item):
+def test_unported_options_raise(tmp_path, monkeypatch, argv, error):
+    """``--distributed`` without torchrun's environment names what is
+    missing, and refuses ``--mesh off``; neither falls back to one process."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     path, _ = _write_net(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=error):
         cli.main(["sample", "-m", path, "--device", "cpu", *argv])
 
 
