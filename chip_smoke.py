@@ -8,7 +8,8 @@ non-zero:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build the sweep kernel from ``grample_tpu_torch/csrc`` with nvcc
-     (and print what ``-Xptxas -v`` said of each instance);
+     (and print what ``-Xptxas -v`` said of each instance: card bound,
+     counted or not, dense bank only or with the gather walk);
   3. the kernel against its plain PyTorch version on the card: a 10x10
      binary grid (100 vars, 280 factors, 3 evidence vars), 2 variants x
      131072 chains, the same seed and hash width, one sweep: every form
@@ -39,17 +40,22 @@ non-zero:
      and held against the group that was never saved; host seconds of a
      flush and of the PSRF moment sum.  A virtual mesh's times say nothing
      about scaling;
-  3e. the torch-ops sweep route (``ops.gibbs_bank``, which takes what the
-     kernel's gate refuses) against the kernel: the 8 collapse variants of
-     3b encoded twice, dense through the CUDA kernel and all-gather (every
-     incidence in the flat-table gather bank) through ``window_ops`` on the
-     card, same seed and state, one counted sweep: both banks are summed
-     in factor order, so the bound is 3's (a draw on a CDF boundary can
-     flip between the kernel's expf and ``torch.exp``), the number that
-     differ is printed, count totals must be exact and counts equal where
-     the states agree; on the dense encoding ``window_ops`` must equal the
-     plain version exactly; both routes timed on an 8-sweep counted
-     window (printed with phase 5's rows);
+  3e. the kernel's gather form (the flat-table gather bank, the
+     reference's XLA code ``gibbs_xla.py:129-141``) and the torch-ops
+     sweep (``ops.gibbs_bank.window_ops``, its plain version): the 8
+     collapse variants of 3b encoded twice, dense and all-gather (every
+     incidence in the gather bank); every form of the gather kernel
+     against ``window_ops`` (phase 3's rules), then one counted sweep from
+     one state and seed three ways: the gather form against
+     ``window_ops``, against the dense kernel, and the dense kernel
+     against ``window_ops``; each within 3's bound (both banks are summed
+     in factor order: only a draw on a CDF boundary can flip between the
+     kernel's ``expf`` and ``torch.exp``), the number that differ printed,
+     count totals exact and counts equal where the states agree; on the
+     dense encoding ``window_ops`` must equal the plain version exactly;
+     the gather form, ``window_ops`` on both encodings and the dense
+     kernel timed on an 8-sweep counted window (printed with phase 5's
+     rows);
   4. the main path through the CLI: ``sample -s simple`` on a 4x4 grid
      with evidence and an exact ``.MAR``, 2 x 131072 chains; the MAR it
      writes must be within 0.005 max Hellinger of the exact marginals
@@ -81,17 +87,20 @@ non-zero:
      its samples/s printed with the host CPU's name; the UAI parser's
      native tokenizer against the portable one;
   4h. the Promedus-shaped net at the single adaptive group's headroom caps,
-     which are all-gather (the kernel's gate refuses them): ``sample -s
-     adaptive -c 2 --vchains 8192 -a 4 --split-group off`` through the CLI,
-     and the same under a 2x2 virtual mesh through the engine, 20 s each
-     (burn-in 10·V, window 5·V): no raise, the ``sweep route: torch ops``
-     line, no kernel launch, at least one adapt step and one collapsed var,
-     max Hellinger against 5b's 30 s ``-s simple`` marginals within
-     ``OPS_HELL_BOUND``; counted site-samples/s, windows by route, peak
-     memory (run after 5b, whose marginals it is held against);
+     which are all-gather (the kernel's gather form): its window at 2 x
+     8192 chains in every form against ``window_ops`` and timed beside
+     it; then ``sample -s adaptive -c 2 --vchains 8192 -a 4 --split-group
+     off`` through the CLI, and the same under a 2x2 virtual mesh through
+     the engine, 20 s each (burn-in 10·V, window 5·V): no raise, the
+     ``sweep route: kernel, gather form`` line, kernel launches and no
+     torch-ops window, at least one adapt step and one collapsed var, max
+     Hellinger against 5b's 30 s ``-s simple`` marginals within
+     ``HEAD_HELL_BOUND``; counted site-samples/s of both runs, launches by
+     form, peak memory (run after 5b, whose marginals it is held against);
   4i. ``sample -s simple`` on one 12-var binary factor plus unaries (a
      mixed encoding: the wide factor in the gather bank, the unaries
-     dense) against exact marginals, the bound of phase 4;
+     dense; the kernel's gather form) against exact marginals, the bound
+     of phase 4, kernel launches and no torch-ops window;
   4j. ``sample --distributed`` as two rank processes on the one card
      (torchrun's variables: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
      127.0.0.1, a free ``MASTER_PORT``; both see ``cuda:0``; each under a
@@ -128,7 +137,8 @@ non-zero:
      the sampling clock, aux sweeps per tick, host seconds per adapt
      step, set-up seconds and peak device memory, beside ``-s simple -c 2
      --vchains 8192`` at the same budget;
-  6. a JSON line describing each kernel form and shape, then, last,
+  6. a JSON line describing each kernel form and shape (the gather form's
+     rows replace ``gibbs_xla.py:129-141``), then, last,
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository beside it; without either it
@@ -181,14 +191,15 @@ HELL_BOUND = 0.005
 ADAPT_SECS = 30
 #: the same of the adaptive CLI runs 4c, 4d (and 4e: a third, then two)
 CLI_ADAPT_SECS = 21
-#: budget (s) of each 4h run on the torch-ops route
-OPS_SECS = 20
-#: max Hellinger of a 4h run against the 30 s ``-s simple`` run: the ops
-#: route counts about 1e3 times fewer samples in its budget than the
-#: kernel (some 1e5 effective draws per var: 5 sigma about 0.006), after
-#: a burn-in of 10 sweeps, and vars collapsed late hold few RB snapshots;
-#: a wrong table lookup shows as 0.1 and more
-OPS_HELL_BOUND = 0.02
+#: budget (s) and chains per variant of each 4h run (the reference's
+#: bench shape, ``-c 2 --vchains 8192``)
+HEAD_SECS, HEAD_CHAINS = 20, 8192
+#: max Hellinger of a 4h run against the 30 s ``-s simple`` run: a burn-in
+#: of 10 sweeps, and vars collapsed late hold few RB snapshots (on the
+#: torch-ops route, which counted about 1e3 times fewer samples, some 1e5
+#: effective draws per var: 5 sigma about 0.006); a wrong table lookup
+#: shows as 0.1 and more
+HEAD_HELL_BOUND = 0.02
 #: sampling-clock budgets (s) of phase 4j: the adaptive run over two ranks,
 #: the same with a checkpoint, and what the one-process run that resumes
 #: it adds to the snapshot's clock
@@ -244,10 +255,10 @@ LANES = 132 * 128
 HASH_OPS = 3 + 2 * 8 + 3
 
 
-def site_operations(k: int, count: bool) -> int:
+def site_operations(k: int, count: bool, gather: bool = False) -> int:
     """Arithmetic operations of one site's draw at card bound ``k``, as
-    the window's definition (``window_plain``) needs them, whatever a
-    build emits for them."""
+    the window's definition (``window_plain``; ``window_ops`` with a
+    gather bank) needs them, whatever a build emits for them."""
     return (k  # logits outside the card masked
             + (k - 1) + k + k  # the max, its subtraction, exp
             + (k - 1)  # the total
@@ -255,7 +266,8 @@ def site_operations(k: int, count: bool) -> int:
             + (k - 1)  # the total again
             + HASH_OPS + 1  # the uniform, scaled by the total
             + (k - 2) + (k - 1) + (k - 1)  # running CDF, compares, outcome
-            + (1 if count else 0))  # the count
+            + (1 if count else 0)  # the count
+            + (k if gather else 0))  # the gather sum added to the dense sum
 
 
 def card_line() -> str:
@@ -396,22 +408,36 @@ def form_plan(torch, kst, chains, count, sites):
     return gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
 
 
-def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label,
-                   seed=SEED, forms=None):
-    """One sweep through every form of the kernel (or ``forms`` of
-    ``KERNEL_FORMS``) and through the plain version from the same state
-    and ``seed``; returns {form label: largest state difference}."""
+def plain_window(kst):
+    """The plain version of the kernel form ``kst`` takes, with the
+    kernel's call signature (state, seed, sweeps, half, count, cb):
+    ``window_plain``, or ``window_ops`` where the encoding has a gather
+    bank."""
     from grample_tpu_torch.ops import gibbs_cuda
+    from grample_tpu_torch.ops.gibbs_bank import window_ops
     from grample_tpu_torch.ops.gibbs_torch import window_plain
     from grample_tpu_torch.ops.sweep import KERNEL_KEYS
 
-    args = [kst[k] for k in KERNEL_KEYS]
+    if gibbs_cuda.uses_gather(kst):
+        return lambda *a: window_ops(kst, *a)
+    return lambda *a: window_plain(*[kst[k] for k in KERNEL_KEYS], *a)
+
+
+def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, label,
+                   seed=SEED, forms=None):
+    """One sweep through every form of the kernel (or ``forms`` of
+    ``KERNEL_FORMS``) and through the plain version (``plain_window``)
+    from the same state and ``seed``; returns {form label: largest state
+    difference}."""
+    from grample_tpu_torch.ops import gibbs_cuda
+
+    plain = plain_window(kst)
     free = free_rows.bool()
     errs = {}
     plain_out = {}
     for form, count, by_site in forms or KERNEL_FORMS:
         if count not in plain_out:
-            plain_out[count] = window_plain(*args, state0.clone(), seed, 1, 0, count, cb)
+            plain_out[count] = plain(state0.clone(), seed, 1, 0, count, cb)
         sp, cp = plain_out[count]
         sk, ck = gibbs_cuda.gibbs_window(kst, state0.clone(), seed, 1, 0, count, cb,
                                          form_plan(torch, kst, chains, count, by_site))
@@ -444,19 +470,24 @@ def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, lab
 def window_bound(kst, chains, sweeps, count, clock_hz):
     """(bound_ms, bound_by) of one window on ``kst``: the larger of the
     bytes it must move over the card's memory rate (state rows read once,
-    site rows written once, live counts written once, lists and tables
-    read once) and the arithmetic its live work needs (``site_operations``
-    per live site, ``k`` table adds per live incidence, one multiply-add
-    per live scope entry) at one operation per lane and clock."""
+    site rows written once, live counts written once, lists and tables of
+    both banks read once) and the arithmetic its live work needs
+    (``site_operations`` per live site, ``k`` table adds per live dense or
+    gather incidence, one multiply-add per live scope entry of either
+    bank) at one operation per lane and clock, whichever route computes
+    it."""
+    from grample_tpu_torch.ops import gibbs_cuda
     from grample_tpu_torch.ops.layout import H_WORDS, compact_counts
 
     live = compact_counts(kst["c_lists"].cpu().numpy()).astype(np.int64)
-    sites, rows, incs, scope, tfloats = live.sum(axis=0)
+    sites, rows, incs, scope, tfloats, gincs, gscope = live.sum(axis=0)
     k = kst["k_kmask"].shape[3]
     words = int(kst["c_lists"][:, H_WORDS].sum().item())
     nbytes = 4 * (chains * (rows + sites + (2 * k * sites if count else 0))
                   + words + tfloats)
-    ops = sweeps * chains * (sites * site_operations(k, count) + incs * k + scope)
+    gather = gibbs_cuda.uses_gather(kst)
+    ops = sweeps * chains * (sites * site_operations(k, count, gather)
+                             + (incs + gincs) * k + scope + gscope)
     by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / (LANES * clock_hz) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -481,16 +512,20 @@ def describe_launch(torch, kst, chains, count, label, sites=None, plan=None):
     live = compact_counts(kst["c_lists"].cpu().numpy())
     n, nc, g, k = kst["k_kmask"].shape
     f, s = kst["k_scope"].shape[3:]
+    fg = kst["gb_offset"].shape[3]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan = plan or gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
     occ = gibbs_cuda.occupancy(k, plan)
     per = lambda col: f"{live[:, col].min()}-{live[:, col].max()}"  # noqa: E731
+    bank = (f", live gather incidences {per(5)} of {nc * g * fg}, live gather scope entries "
+            f"{per(6)} of {nc * g * fg * s} (flat table {kst['tables'][0].numel() * 4} bytes)"
+            if fg else "")
     print(f"launch, {label}: per variant live rows {per(0)} of {nc * g} slots, state rows "
           f"kept {per(1)} of {kst['pal_oon'].shape[1]}, live incidences {per(2)} of "
-          f"{nc * g * f}, live scope entries {per(3)} of {nc * g * f * s}, compact tables "
+          f"{nc * g * f}, live scope entries {per(3)} of {nc * g * f * s}{bank}, compact tables "
           f"{live[:, 4].min() * 4}-{live[:, 4].max() * 4} bytes (dense "
-          f"{kst['k_tables'][0].numel() * 4}); "
-          f"{'site-parallel' if plan.sites else 'thread per chain'}, {plan.threads} threads "
+          f"{kst['k_tables'][0].numel() * 4}); {gibbs_cuda.form_name(plan)}, "
+          f"{plan.threads} threads "
           f"per block, {n * -(-chains // (plan.threads // 32 if plan.sites else plan.threads))} "
           f"blocks, {occ['blocks_per_sm']} resident per SM, "
           f"{occ['registers']} registers, {occ['local_bytes']} bytes of local memory "
@@ -609,7 +644,13 @@ def main() -> int:
     from grample_tpu_torch.ops import _build, gibbs_cuda
     from grample_tpu_torch.ops.gibbs_bank import chain_block, window_ops
     from grample_tpu_torch.ops.gibbs_torch import window_plain
-    from grample_tpu_torch.ops.sweep import KERNEL_KEYS, hash_block, kernel_refusal, sweep_tensors
+    from grample_tpu_torch.ops.sweep import (
+        KERNEL_KEYS,
+        advance_chains,
+        hash_block,
+        kernel_refusal,
+        sweep_tensors,
+    )
     from grample_tpu_torch.pgm import discrete
     from grample_tpu_torch.pgm.encode import (
         COLLAPSE_OA_DENSE_CAP,
@@ -650,15 +691,16 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     gibbs_cuda._lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+    print(f"build ({card}): {time.perf_counter() - t0:.2f} s -> "
           f"{os.path.relpath(_build.library_path())}", flush=True)
     with open(_build.library_path() + ".log") as fh:
         ptxas = [ln.strip() for ln in fh if "Compiling" in ln or "registers" in ln
                  or "spill" in ln]
     for entry, spills, regs in zip(ptxas[0::3], ptxas[1::3], ptxas[2::3]):
-        name, kmax, form = re.search(r"(gibbs_window(?:_sites)?_kernel)IL\w(\d+)EL\w(\d+)E", entry).groups()
-        print(f"ptxas, {name}<{kmax}, {form}> (card bound, counts form): "
-              f"{regs.split(': ')[1]}; {spills}", flush=True)
+        name, kmax, form, gather = re.search(
+            r"(gibbs_window(?:_sites)?_kernel)IL\w(\d+)EL\w(\d+)EL\w(\d+)E", entry).groups()
+        print(f"ptxas, {name}<{kmax}, {form}, {gather}> (card bound, counts form, gather "
+              f"form): {regs.split(': ')[1]}; {spills}", flush=True)
     clock_hz = max_sm_clock_hz()
 
     # ---- 3. kernel against the plain version --------------------------------
@@ -674,7 +716,7 @@ def main() -> int:
     wkst, wstate0, wfree, wn_free = window_inputs(torch, dev, wvariants, wcaps, WIDE_CHAINS)
     check(32 < wcaps.oa_cap <= 256, f"collapse variants' oa_cap {wcaps.oa_cap} not in (32, 256]")
     collapsed = [int(np.nonzero(v.collapsed)[0][0]) for v in wvariants]
-    print(f"Promedus-shaped net: {promedus.num_vars} vars, "
+    print(f"Promedus-shaped net ({card}): {promedus.num_vars} vars, "
           f"{int((promedus.fixed >= 0).sum())} evidence, collapse variants of vars "
           f"{collapsed}: oa_cap {wcaps.oa_cap}, scope_cap {wcaps.scope_cap}, "
           f"adj_cap {wcaps.adj_cap}, NVp {wcaps.num_rows} (host set-up "
@@ -683,40 +725,52 @@ def main() -> int:
         torch, wkst, wstate0, wfree, wn_free, wcaps.num_slots, WIDE_CHAINS,
         hash_block(WIDE_CHAINS), f"{WIDE_SLOTS} collapse variants").values())
 
-    # ---- 3e. the torch-ops route against the kernel ---------------------------
+    # ---- 3e. the kernel's gather form, the torch-ops route, the dense kernel ----
     gcaps = dataclasses.replace(wcaps, base_mode="gather", adj_cap=0, oa_cap=1,
                                 gfac_cap=wcaps.adj_cap + wcaps.gfac_cap)
-    check("gather bank" in (kernel_refusal(gcaps) or ""), "3e: the gate took all-gather caps")
-    gkst = sweep_tensors(stack_variants([encode_model(v, gcaps) for v in wvariants]), dev,
-                         compact=False)
-    check(torch.equal(gkst["pal_oon"], wkst["pal_oon"])
+    check(kernel_refusal(gcaps) is None, f"3e: the gate refused all-gather caps: "
+          f"{kernel_refusal(gcaps)}")
+    gkst = sweep_tensors(stack_variants([encode_model(v, gcaps) for v in wvariants]), dev)
+    check(gibbs_cuda.uses_gather(gkst) and torch.equal(gkst["pal_oon"], wkst["pal_oon"])
           and torch.equal(gkst["k_kmask"], wkst["k_kmask"]),
           "3e: the dense and the all-gather encoding differ in kernel order")
     wcb, wslot, wlive = hash_block(WIDE_CHAINS), wcaps.num_slots, wfree.bool()
+    gather_errs = compare_window(torch, gkst, wstate0, wfree, wn_free, wslot, WIDE_CHAINS, wcb,
+                                 f"3e, {WIDE_SLOTS} collapse variants all-gather, gather form")
     sk, ck = gibbs_cuda.gibbs_window(wkst, wstate0.clone(), SEED, 1, 0, True, wcb)
+    sg, cg = gibbs_cuda.gibbs_window(gkst, wstate0.clone(), SEED, 1, 0, True, wcb)
     so, co = window_ops(gkst, wstate0.clone(), SEED, 1, 0, True, wcb)
     torch.cuda.synchronize()
-    ops_differ = int(((sk[:, :wslot] != so[:, :wslot]) & wlive[:, :, None]).sum().item())
-    ops_frac = ops_differ / (int(wlive.sum().item()) * WIDE_CHAINS)
-    check(ops_frac <= MAX_MISMATCH, f"3e: {ops_frac:.2e} of free sites differ")
-    check(torch.equal(so[:, wslot:], wstate0[:, wslot:]), "3e: the ops route wrote a tail row")
-    per_row = co.sum(dim=(1, 2, 4))
-    check(int((per_row * wlive).sum().item()) == WIDE_CHAINS * wn_free
-          and int((per_row * ~wlive).sum().item()) == 0, "3e: the ops route's count totals")
-    agree = (sk[:, :wslot] == so[:, :wslot]).all(dim=0)[None] & wlive[:, :, None]
-    check(not bool(((ck != co).any(dim=1).any(dim=1) & agree).any().item()),
-          "3e: counts differ on free rows where states agree")
+    for what, out in (("the dense kernel", (sk, ck)), ("the gather form", (sg, cg)),
+                      ("the ops route", (so, co))):
+        check(torch.equal(out[0][:, wslot:], wstate0[:, wslot:]), f"3e: {what} wrote a tail row")
+        per_row = out[1].sum(dim=(1, 2, 4))
+        check(int((per_row * wlive).sum().item()) == WIDE_CHAINS * wn_free
+              and int((per_row * ~wlive).sum().item()) == 0, f"3e: {what}'s count totals")
+    differ_3e = {}
+    for what, (sa, ca), (sb, cb_) in (
+            ("gather form vs window_ops", (sg, cg), (so, co)),
+            ("gather form vs dense kernel", (sg, cg), (sk, ck)),
+            ("dense kernel vs window_ops", (sk, ck), (so, co))):
+        differ_3e[what] = int(((sa[:, :wslot] != sb[:, :wslot]) & wlive[:, :, None]).sum().item())
+        frac = differ_3e[what] / (int(wlive.sum().item()) * WIDE_CHAINS)
+        check(frac <= MAX_MISMATCH, f"3e, {what}: {frac:.2e} of free sites differ")
+        agree = (sa[:, :wslot] == sb[:, :wslot]).all(dim=0)[None] & wlive[:, :, None]
+        check(not bool(((ca != cb_).any(dim=1).any(dim=1) & agree).any().item()),
+              f"3e, {what}: counts differ on free rows where states agree")
     sp, cp = window_plain(*[wkst[k] for k in KERNEL_KEYS], wstate0.clone(), SEED, 1, 0, True, wcb)
     sd, cd = window_ops(wkst, wstate0.clone(), SEED, 1, 0, True, wcb)
     check(torch.equal(sd, sp) and torch.equal(cd, cp),
           "3e: on the dense encoding the ops route differs from the plain version")
-    print(f"3e: {WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, dense through the kernel "
-          f"and all-gather (gfac_cap {gcaps.gfac_cap}, scope_cap {gcaps.scope_cap}) through "
-          f"window_ops on the card: {ops_differ} of {int(wlive.sum().item()) * WIDE_CHAINS} free "
-          f"sites differ (bound {MAX_MISMATCH}), counts equal where states agree; window_ops "
-          f"on the dense encoding equals the plain version exactly; blocks of "
+    print(f"3e: {WIDE_SLOTS} collapse variants x {WIDE_CHAINS} chains, dense through the kernel, "
+          f"all-gather (gfac_cap {gcaps.gfac_cap}, scope_cap {gcaps.scope_cap}) through the "
+          f"kernel's gather form and through window_ops on the card, one counted sweep from one "
+          f"state and seed: free sites that differ of "
+          f"{int(wlive.sum().item()) * WIDE_CHAINS} {differ_3e} (bound {MAX_MISMATCH}), count "
+          f"totals exact, counts equal where states agree; window_ops on the dense encoding "
+          f"equals the plain version exactly; window_ops in blocks of "
           f"{chain_block(gkst, WIDE_CHAINS)} chains", flush=True)
-    del sk, ck, so, co, sp, cp, sd, cd, agree, per_row
+    del sk, ck, sg, cg, so, co, sp, cp, sd, cd, agree, per_row
 
     # ---- 3c. the kernel on collapse-headroom encodings -----------------------
     hvariants, hcaps, hpicks = headroom_grid_variants()
@@ -734,7 +788,7 @@ def main() -> int:
     check((acaps.oa_cap, acaps.num_rows) == (256, 4200),
           f"aux caps oa_cap {acaps.oa_cap}, NVp {acaps.num_rows} != (256, 4200)")
     akst, astate0, afree, an_free = window_inputs(torch, dev, avariants, acaps, AUX_CHAINS)
-    print(f"Promedus-shaped net at aux caps: collapse variants of vars {apicks}: "
+    print(f"Promedus-shaped net at aux caps ({card}): collapse variants of vars {apicks}: "
           f"color_cap {acaps.color_cap}, oa_cap {acaps.oa_cap}, NVp {acaps.num_rows}, "
           f"k_tables {akst['k_tables'][0].numel() * 4 / 1e6:.1f} MB per variant (host "
           f"set-up {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -772,7 +826,7 @@ def main() -> int:
         t_flush = time.perf_counter()
         g.flush()
         flush_secs = time.perf_counter() - t_flush
-        print(f"3d: {'sharded 2x2' if g is sharded else 'unsharded'} group, 2 x {GRID_CHAINS} "
+        print(f"3d ({card}): {'sharded 2x2' if g is sharded else 'unsharded'} group, 2 x {GRID_CHAINS} "
               f"chains: flush of two windows' deltas {flush_secs * 1e3:.3f} ms of host time; "
               f"launches so far {dict(gibbs_cuda.gibbs_window.launches_by_form)}", flush=True)
     same_as(sharded, unsharded, "a burn and two counted windows")
@@ -822,7 +876,7 @@ def main() -> int:
         g.advance()
     same_as(sharded, unsharded, "a third window")
     same_as(resumed, unsharded, "saved on 2x2, resumed on 1x4, advanced")
-    print(f"3d: saved on a 2x2 mesh, resumed on 1x4, advanced: equal to the group that was "
+    print(f"3d ({card}): saved on a 2x2 mesh, resumed on 1x4, advanced: equal to the group that was "
           f"never saved; launches by form {dict(gibbs_cuda.gibbs_window.launches_by_form)} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     del sharded, unsharded, resumed
@@ -857,7 +911,7 @@ def main() -> int:
         score = error_suite(est, truth, model.cards, model.fixed, None)
     check(score.max_hellinger < HELL_BOUND,
           f"max Hellinger {score.max_hellinger:.5f} >= {HELL_BOUND}")
-    print(f"cli sample -s simple: {cli_secs:.1f} s, {launches} kernel launches, "
+    print(f"cli sample -s simple ({card}): {cli_secs:.1f} s, {launches} kernel launches, "
           f"max Hellinger {score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
 
     # ---- 4b. the collapsed path through the CLI ------------------------------
@@ -901,7 +955,7 @@ def main() -> int:
           flush=True)
     check(col_score.max_hellinger < HELL_BOUND,
           f"collapsed: max Hellinger {col_score.max_hellinger:.5f} >= {HELL_BOUND}")
-    print(f"cli sample -s collapsed -c 8 --vchains {COLLAPSED_CHAINS}: {col_secs:.1f} s, "
+    print(f"cli sample -s collapsed -c 8 --vchains {COLLAPSED_CHAINS} ({card}): {col_secs:.1f} s, "
           f"{col_launches} kernel launches, collapsed vars {logged} (local tables of "
           f"{ccaps.oa_cap} rows), max Hellinger {col_score.max_hellinger:.6f} "
           f"(bound {HELL_BOUND})", flush=True)
@@ -944,7 +998,7 @@ def main() -> int:
                   f"{phase}: max Hellinger {a_score.max_hellinger:.5f} >= {HELL_BOUND}")
             aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
             print(f"cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {CLI_ADAPT_SECS} "
-                  f"--split-group {split} ({phase}): {secs:.1f} s, {launches_a} kernel "
+                  f"--split-group {split} ({phase}; {card}): {secs:.1f} s, {launches_a} kernel "
                   f"launches, {len(steps)} adapt steps ({sum(steps):.3f} s of host time), "
                   f"collapsed vars {res['collapsed']}, {res['variants']} variants, aux "
                   f"{res['aux_secs']:.3f} s {aux_line}, max Hellinger "
@@ -971,7 +1025,7 @@ def main() -> int:
         b2.advance()
         check(torch.equal(a.state, b2.state) and torch.equal(a.halves, b2.halves)
               and np.array_equal(a.totals, b2.totals), "kill-and-resume is not bit-exact")
-        print(f"kill and resume, 10x10 grid, 2 x {GRID_CHAINS} chains: state, halves and "
+        print(f"kill and resume ({card}), 10x10 grid, 2 x {GRID_CHAINS} chains: state, halves and "
               f"totals bit-exact ({time.perf_counter() - t0:.1f} s)", flush=True)
         del a, b2
         base = ["sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2",
@@ -992,7 +1046,7 @@ def main() -> int:
         check(meta2["total_samples"] > meta1["total_samples"], "4e: the sample count did not grow")
         check(snaps1 and all(g2.aux._rbp_snaps[k] > n for k, n in snaps1.items()),
               f"4e: RB snapshots did not continue: {snaps1} -> {g2.aux._rbp_snaps}")
-        print(f"kill and resume through the CLI (4d with --checkpoint): "
+        print(f"kill and resume through the CLI (4d with --checkpoint; {card}): "
               f"{meta1['total_samples']:,} -> {meta2['total_samples']:,} samples, "
               f"{meta1['runtime']:.1f} -> {meta2['runtime']:.1f} s of clock, RB snapshots "
               f"{snaps1} -> {dict(g2.aux._rbp_snaps)}, {launches_r} kernel launches after "
@@ -1163,7 +1217,7 @@ def main() -> int:
               f"4j (c): the one-process run did not resume ({rc})")
         check(launches_c > 0 and res_c["samples"] > meta1["total_samples"],
               "4j (c): the resumed run did not go on")
-        print(f"4j (c): the same over the two ranks for {RANKS_CKPT_SECS} s with --checkpoint "
+        print(f"4j (c) ({card}): the same over the two ranks for {RANKS_CKPT_SECS} s with --checkpoint "
               f"({secs_c:.1f} s wall with process start; collectives and saves "
               f"{collective_ms(records)}), {meta1['slot_cap']} slots saved after "
               f"{meta1['runtime']:.2f} s of clock, resumed by one unsharded process for "
@@ -1186,8 +1240,7 @@ def main() -> int:
             kst_, st, seed, sweeps, half, count, cb_,
             plan or form_plan(torch, kst_, st.shape[2], count, sites))
 
-    def plain(kst_):
-        return lambda *a: window_plain(*[kst_[k] for k in KERNEL_KEYS], *a)
+    plain = plain_window
 
     def best(fn, st0, sweeps, count=True, cb=cb) -> float:
         fn(st0.clone(), SEED, 1, 0, count, cb)  # warm
@@ -1234,8 +1287,9 @@ def main() -> int:
             "launches": launched, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms_,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
 
-    def of_form(form):
-        return lambda paths: sum(by_form.get(form, 0) for by_form in paths.values())
+    def of_form(*forms):
+        return lambda paths: sum(by_form.get(form, 0) for by_form in paths.values()
+                                 for form in forms)
 
     def of_phases(*phases):
         return lambda paths: sum(sum(paths[ph].values()) for ph in phases)
@@ -1309,7 +1363,7 @@ def main() -> int:
     sh_plain_ms = timed(plain(shard_kst), shard_state0, TIMED_SWEEPS, cb=sh_cb)
     sh_bound = window_bound(shard_kst, sh_chains, TIMED_SWEEPS, True, clock_hz)
     rate_line(sh_label, TIMED_SWEEPS * sh_chains * shard_n_free, sh_ms, sh_plain_ms, sh_bound)
-    print(f"timing: four such shards one after the other {4 * sh_ms:.3f} ms, the unsharded "
+    print(f"timing ({card}): four such shards one after the other {4 * sh_ms:.3f} ms, the unsharded "
           f"window {kernel_ms:.3f} ms ({gibbs_cuda.form_name(sh_plan)}; one card, one stream: "
           f"no scaling figure)", flush=True)
     record("gibbs_window (sharded launch)", "grample_tpu/parallel/mesh.py:137",
@@ -1327,19 +1381,32 @@ def main() -> int:
     wbound = window_bound(wkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
     rate_line(f"the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window",
               WIDE_PAIR_SWEEPS * wsites, wide_ms, wide_plain_ms, wbound)
-    # 3e's two times: the same 8-sweep counted window on the ops route, on
-    # the all-gather encoding and on the dense one
+    # 3e's times: the same 8-sweep counted window on the kernel's gather form
+    # and on the ops route, both on the all-gather encoding, and on the ops
+    # route on the dense one
+    glabel = (f"3e, {WIDE_SLOTS} collapse variants all-gather x {WIDE_CHAINS} chains, "
+              f"{WIDE_PAIR_SWEEPS}-sweep counted window, gather form")
+    gplan = describe_launch(torch, gkst, WIDE_CHAINS, True, glabel)
+    gather_ms = best(kern(gkst), wstate0, WIDE_PAIR_SWEEPS)
     torch.cuda.reset_peak_memory_stats()
-    ops_gather_ms = best(lambda st, *a: window_ops(gkst, st, *a), wstate0, WIDE_PAIR_SWEEPS)
+    ops_gather_ms = best(plain(gkst), wstate0, WIDE_PAIR_SWEEPS)
     ops_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gbound = window_bound(gkst, WIDE_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
+    rate_line(glabel, WIDE_PAIR_SWEEPS * wsites, gather_ms, ops_gather_ms, gbound)
     ops_dense_ms = best(lambda st, *a: window_ops(wkst, st, *a), wstate0, WIDE_PAIR_SWEEPS)
     print(f"timing ({card}): 3e, the same variants, {WIDE_PAIR_SWEEPS}-sweep counted window: "
-          f"kernel (dense encoding) {wide_ms:.3f} ms; torch-ops route on the all-gather "
-          f"encoding {ops_gather_ms:.3f} ms = "
+          f"kernel on the dense encoding {wide_ms:.3f} ms; kernel's gather form on the all-gather "
+          f"encoding {gather_ms:.3f} ms ({gather_ms / wide_ms:.3f}x the dense kernel); torch-ops "
+          f"route on the all-gather encoding {ops_gather_ms:.3f} ms = "
           f"{WIDE_PAIR_SWEEPS * wsites / (ops_gather_ms / 1e3):.4e} site-samples/s "
-          f"({ops_gather_ms / wide_ms:.1f}x the kernel, peak device memory {ops_peak_gb:.2f} GB); "
-          f"torch-ops route on the dense encoding {ops_dense_ms:.3f} ms; plain version "
-          f"{wide_plain_ms:.3f} ms", flush=True)
+          f"({ops_gather_ms / gather_ms:.1f}x the gather form, peak device memory "
+          f"{ops_peak_gb:.2f} GB); torch-ops route on the dense encoding {ops_dense_ms:.3f} ms; "
+          f"plain version {wide_plain_ms:.3f} ms", flush=True)
+    record(f"gibbs_window (gather bank, {gibbs_cuda.form_name(gplan).split(',')[0]})",
+           "grample_tpu/ops/gibbs_xla.py:129-141",
+           of_form(*(gibbs_cuda.form_name(dataclasses.replace(gplan, count=c_))
+                     for c_ in (True, False))),
+           gather_errs["rule"], gather_ms, ops_gather_ms, gbound)
     del gkst
     # block width against staging: what plan_launch's width rule rests on
     shape_rows(wlabel, wkst, wstate0, wn_free, WIDE_CHAINS, WIDE_FULL_SWEEPS,
@@ -1448,15 +1515,55 @@ def main() -> int:
           f"{peak_s:.2f} GB; adaptive/simple rate {res.samples_per_sec / res_s.samples_per_sec:.3f}",
           flush=True)
 
-    # ---- 4h. the headroom caps the kernel's gate refuses, at full width --------
+    # ---- 4h. the single adaptive group's all-gather headroom caps -------------
     simple_marginals = res_s.marginals
     hmodel, hevidence = torch_models.promedus_like(discrete, seed=1)
     hmodel_ev, _ = torch_models.promedus_like(discrete, seed=1)
     hmodel_ev.apply_evidence(hevidence)
     v = hmodel.num_vars
     head_caps = compute_caps(hmodel_ev, collapse_headroom=True, slot_hint=128, headroom_factors=2)
-    check(head_caps.base_mode == "gather" and "gather bank" in kernel_refusal(head_caps),
-          f"4h: headroom caps {head_caps} pass the kernel's gate")
+    check(head_caps.base_mode == "gather" and kernel_refusal(head_caps) is None,
+          f"4h: headroom caps {head_caps} are not all-gather caps the kernel takes")
+    # the window of the runs' first tick: 2 plain copies x 8192 chains,
+    # every form against window_ops, the rule's pick timed beside it
+    hvkst, hvstate0, hvfree, hvn_free = window_inputs(torch, dev, [hmodel_ev] * 2, head_caps,
+                                                      HEAD_CHAINS)
+    hcb = hash_block(HEAD_CHAINS)
+    head_errs = compare_window(torch, hvkst, hvstate0, hvfree, hvn_free, head_caps.num_slots,
+                               HEAD_CHAINS, hcb, f"4h encoding, 2 x {HEAD_CHAINS} chains")
+    hlabel = (f"the Promedus-shaped net at all-gather headroom caps (4h), 2 x {HEAD_CHAINS} "
+              f"chains, {WIDE_FULL_SWEEPS}-sweep counted window")
+    hplan = describe_launch(torch, hvkst, HEAD_CHAINS, True, hlabel)
+    head_ms = best(kern(hvkst), hvstate0, WIDE_FULL_SWEEPS, cb=hcb)
+    head_plain_ms = timed(plain(hvkst), hvstate0, WIDE_FULL_SWEEPS, cb=hcb)
+    head_bound = window_bound(hvkst, HEAD_CHAINS, WIDE_FULL_SWEEPS, True, clock_hz)
+    rate_line(hlabel, WIDE_FULL_SWEEPS * HEAD_CHAINS * hvn_free, head_ms, head_plain_ms,
+              head_bound)
+    record(f"gibbs_window (gather bank, {gibbs_cuda.form_name(hplan).split(',')[0]})",
+           "grample_tpu/ops/gibbs_xla.py:129-141",
+           of_form(*(gibbs_cuda.form_name(dataclasses.replace(hplan, count=c_))
+                     for c_ in (True, False))),
+           head_errs["rule"], head_ms, head_plain_ms, head_bound)
+    del hvkst, hvstate0
+    # one engine window as the 4h runs make it once adaptation has grown the
+    # group (10 variants, a 5-sweep window: -w 5·V): the whole advance, the
+    # state permuted into kernel order and back and the counts mapped from
+    # the padded slots onto the vars, against the kernel launch inside it
+    akst10, ast10, _, _ = window_inputs(torch, dev, [hmodel_ev] * 10, head_caps, HEAD_CHAINS)
+    noo = akst10["pal_noo"].long()
+    ast10_old = torch.gather(ast10, 1, noo[:, :, None].expand(-1, -1, HEAD_CHAINS)) \
+        .transpose(1, 2).contiguous()
+    halves10 = torch.zeros((10, 2, HEAD_CHAINS, v + 1, head_caps.max_card), dtype=torch.int32,
+                           device=dev)
+    adv_ms = best(lambda st, *a: advance_chains(akst10, st, halves10, *a), ast10_old, 5, cb=hcb)
+    adv_kernel_ms = best(kern(akst10), ast10, 5, cb=hcb)
+    print(f"timing ({card}): 4h, one engine window at the runs' grown shape, 10 variants x "
+          f"{HEAD_CHAINS} chains, 5 sweeps counted: advance_chains {adv_ms:.3f} ms, the kernel "
+          f"launch inside it {adv_kernel_ms:.3f} ms ({adv_kernel_ms / adv_ms:.3f} of it; the "
+          f"rest permutes the state and maps the counts of {head_caps.num_slots} padded slots)",
+          flush=True)
+    del akst10, ast10, ast10_old, halves10
+    rates_h = {}
     with tempfile.TemporaryDirectory() as td:
         path = write_net(td, "promedus", hmodel, hevidence)
         for how in ("--split-group off", "2x2 virtual mesh"):
@@ -1468,9 +1575,10 @@ def main() -> int:
             if how == "--split-group off":
                 mar_out = os.path.join(td, "4h.MAR")
                 rc, log = run_cli(cli, [
-                    "sample", "-m", path, "-d", "-s", "adaptive", "-c", "2", "--vchains", "8192",
-                    "-a", "4", "-b", str(10 * v), "-w", str(5 * v), "-x", str(OPS_SECS),
-                    "-e", str(SEED), "--split-group", "off", "-t", trace, "--mar-out", mar_out])
+                    "sample", "-m", path, "-d", "-s", "adaptive", "-c", "2", "--vchains",
+                    str(HEAD_CHAINS), "-a", "4", "-b", str(10 * v), "-w", str(5 * v), "-x",
+                    str(HEAD_SECS), "-e", str(SEED), "--split-group", "off", "-t", trace,
+                    "--mar-out", mar_out])
                 check(rc == 0, f"4h: cli returned {rc}")
                 out = summary(trace)
                 marg = pad_marginals(read_mar_file(mar_out), hmodel.cards)
@@ -1480,8 +1588,8 @@ def main() -> int:
                 lines = []
                 res_h = Engine(EngineConfig(
                     model_path=path, device="cuda", use_evidence=True, sampler="adaptive",
-                    chains=2, chains_per_variant=8192, chain_adds=4, burnin=10 * v,
-                    converge_window=5 * v, max_secs=float(OPS_SECS), seed=SEED, mesh="2x2"),
+                    chains=2, chains_per_variant=HEAD_CHAINS, chain_adds=4, burnin=10 * v,
+                    converge_window=5 * v, max_secs=float(HEAD_SECS), seed=SEED, mesh="2x2"),
                     log=lines.append, devices=[dev] * 4).run()
                 log = "\n".join(lines)
                 marg, collapsed_h, variants_h, rate_h, kernel_h = (
@@ -1493,32 +1601,38 @@ def main() -> int:
             secs = time.perf_counter() - t0
             peak_h = torch.cuda.max_memory_allocated() / 1e9
             launches_h = read_counts(f"4h {how}")
+            rates_h[how] = rate_h
             steps = adapt_secs(log)
-            route_line = [ln for ln in log.splitlines() if ln.startswith("sweep route: torch ops")]
-            check(len(route_line) == 1 and "gather bank" in route_line[0],
-                  f"4h, {how}: route line {route_line}")
+            route_line = [ln for ln in log.splitlines() if ln.startswith("sweep route:")]
+            check(len(route_line) == 1 and route_line[0].startswith(
+                f"sweep route: kernel, gather form (gfac_cap={head_caps.gfac_cap})"),
+                f"4h, {how}: route line {route_line}")
             check("split group" not in log, f"4h, {how}: a split group")
-            check(launches_h == 0 and not kernel_h and sum(ops_windows[f"4h {how}"].values()) > 0,
+            check(launches_h > 0 and kernel_h and not ops_windows[f"4h {how}"],
                   f"4h, {how}: {launches_h} kernel launches, ops windows "
                   f"{ops_windows[f'4h {how}']}")
             check(len(steps) >= 1 and len(collapsed_h) >= 1,
                   f"4h, {how}: {len(steps)} adapt steps, collapsed vars {collapsed_h}")
             check(marg.shape == (v, 2) and np.isfinite(marg).all(), f"4h, {how}: bad marginals")
             h_score = error_suite(marg, simple_marginals, hmodel_ev.cards, hmodel_ev.fixed, None)
-            check(h_score.max_hellinger < OPS_HELL_BOUND,
+            check(h_score.max_hellinger < HEAD_HELL_BOUND,
                   f"4h, {how}: max Hellinger {h_score.max_hellinger:.5f} against -s simple "
-                  f">= {OPS_HELL_BOUND}")
-            print(f"4h ({card}): sample -s adaptive -c 2 --vchains 8192 -a 4 -x {OPS_SECS}, {how}, "
-                  f"on the Promedus-shaped net at all-gather headroom caps (gfac_cap "
-                  f"{head_caps.gfac_cap}, group_cap {head_caps.group_cap}, scope_cap "
+                  f">= {HEAD_HELL_BOUND}")
+            print(f"4h ({card}): sample -s adaptive -c 2 --vchains {HEAD_CHAINS} -a 4 -x "
+                  f"{HEAD_SECS}, {how}, on the Promedus-shaped net at all-gather headroom caps "
+                  f"(gfac_cap {head_caps.gfac_cap}, group_cap {head_caps.group_cap}, scope_cap "
                   f"{head_caps.scope_cap}): {route_line[0]!r}; {secs:.1f} s wall, {len(steps)} "
                   f"adapt steps ({sum(steps):.3f} s of host time), {len(collapsed_h)} collapsed "
-                  f"vars, {variants_h} variants, {rate_h:.4e} counted site-samples/s, windows "
-                  f"by route {ops_windows[f'4h {how}']}, kernel launches {launches_h}, peak device "
-                  f"memory {peak_h:.2f} GB ({held_gb:.2f} GB of it held by earlier phases), "
-                  f"max Hellinger against the {ADAPT_SECS} s -s simple "
-                  f"run {h_score.max_hellinger:.6f} (bound {OPS_HELL_BOUND}), mean "
-                  f"{h_score.mean_hellinger:.6f}", flush=True)
+                  f"vars, {variants_h} variants, {rate_h:.4e} counted site-samples/s, kernel "
+                  f"launches by form {path_launches[f'4h {how}']}, torch-ops windows "
+                  f"{ops_windows[f'4h {how}']}, peak device memory {peak_h:.2f} GB "
+                  f"({held_gb:.2f} GB of it held by earlier phases), max Hellinger against the "
+                  f"{ADAPT_SECS} s -s simple run {h_score.max_hellinger:.6f} (bound "
+                  f"{HEAD_HELL_BOUND}), mean {h_score.mean_hellinger:.6f}", flush=True)
+    print(f"4h ({card}): counted site-samples/s, --split-group off {rates_h['--split-group off']:.4e}, "
+          f"2x2 virtual mesh {rates_h['2x2 virtual mesh']:.4e}; 5b's split group "
+          f"{res.samples_per_sec:.4e} and -s simple {res_s.samples_per_sec:.4e} on the same net",
+          flush=True)
 
     # ---- 4i. -s simple on a mixed encoding ------------------------------------
     wmodel = torch_models.wide_factor(discrete, 12, seed=2)
@@ -1539,8 +1653,9 @@ def main() -> int:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches_w = read_counts("4i")
-        check(rc == 0 and "sweep route: torch ops" in log, f"4i: cli returned {rc}")
-        check(launches_w == 0 and sum(ops_windows["4i"].values()) > 0,
+        check(rc == 0 and "sweep route: kernel, gather form (gfac_cap=1)" in log,
+              f"4i: cli returned {rc}, or no gather-form route line")
+        check(launches_w > 0 and not ops_windows["4i"],
               f"4i: {launches_w} kernel launches, ops windows {ops_windows['4i']}")
         est = pad_marginals(read_mar_file(mar_out), wmodel.cards)
         w_score = error_suite(est, wtruth, wmodel.cards, wmodel.fixed, None)
@@ -1548,9 +1663,9 @@ def main() -> int:
           f"4i: max Hellinger {w_score.max_hellinger:.5f} >= {HELL_BOUND}")
     rate_w = [ln for ln in log.splitlines() if "samples/s" in ln][-1].strip()
     print(f"4i ({card}): cli sample -s simple on a 12-var factor + unaries (mixed encoding, "
-          f"torch-ops route): {secs:.1f} s, windows by route {ops_windows['4i']}, last status "
-          f"line {rate_w!r}, max Hellinger {w_score.max_hellinger:.6f} (bound {HELL_BOUND})",
-          flush=True)
+          f"the kernel's gather form): {secs:.1f} s, kernel launches by form "
+          f"{path_launches['4i']}, last status line {rate_w!r}, max Hellinger "
+          f"{w_score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
 
     # ---- 6. results --------------------------------------------------------
     record("gibbs_window (wide tables)", "grample_tpu/ops/gibbs_pallas.py:355-367",

@@ -54,6 +54,22 @@
 //    site-parallel form instead, gibbs_window_sites_kernel below: a warp
 //    per chain, its lanes on the live sites of one color.
 //
+//  - The gather form (template parameter GATHER) also walks the flat-table
+//    gather bank, the reference's XLA code in
+//    grample_tpu/ops/gibbs_xla.py::_color_logits (:129-141), which the
+//    reference kernel's gate refuses: after a site's dense incidences it
+//    sums its live gather incidences, in Fg order, into a second
+//    accumulator, one int32 index (offset + sum of state * stride) and one
+//    table read per in-card outcome (index + k * self_stride) each, then
+//    adds that sum to the dense one (the reference's dense + sum over Fg).
+//    The flat table is cut to the stretches live incidences can read and
+//    rides behind the dense tables, so it is staged with them.  Skipping a
+//    dead gather slot is exact as for a dense one: the encoder floors the
+//    tables at LOG_EPS, so a masked entry is +-0.  Its plain version is
+//    grample_tpu_torch/ops/gibbs_bank.py::window_ops.  At card bound 16 the
+//    two accumulators take 32 registers, so those instances are bounded to
+//    512-thread blocks (128 registers a thread).
+//
 // The hash is stateless per (site row in its color, chain, sweep, color),
 // so the mapping of threads to sites does not change a draw.  Float
 // arithmetic uses the _rn intrinsics so that the compiler does not
@@ -73,7 +89,12 @@ constexpr float kInv24 = 5.9604644775390625e-8f;  // 2^-24
 
 // c_lists header words (ops/layout.py H_*)
 constexpr int H_SITES = 0, H_ROWS = 1, H_TABLE_FLOATS = 4, H_OFF_COLOR = 5,
-              H_OFF_SITES = 6, H_OFF_INCS = 7, H_OFF_SCOPE = 8, H_WORDS = 9;
+              H_OFF_SITES = 6, H_OFF_INCS = 7, H_OFF_SCOPE = 8, H_WORDS = 9,
+              H_OFF_GSITES = 12, H_OFF_GINCS = 13, H_OFF_GSCOPE = 14;
+
+// Threads a block of an instance may have: the gather form at card bound
+// 16 holds two 16-logit accumulators (ops/gibbs_cuda.py::max_threads).
+#define MAX_THREADS(KMAX, GATHER) (((GATHER) && (KMAX) > 8) ? 512 : 1024)
 
 struct Params {
   const int32_t* c_lists;   // [N, lw]
@@ -123,6 +144,9 @@ struct Lists {
   const int2* incs;    // (first table row, end index into scope)
   const uint32_t* scope;  // dense state row | stride << 16
   const float* tabs;
+  const int32_t* gsites;  // end index into gincs, per site (gather form)
+  const int4* gincs;   // (offset into tabs, self stride, end index into gscope, 0)
+  const int2* gscope;  // (dense state row, stride)
 };
 
 // Start the block's copies of variant n's tables and lists into shared
@@ -151,11 +175,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+template <bool GATHER>
 __device__ __forceinline__ Lists open_lists(const int32_t* lists, const float* tabs) {
-  return {lists + lists[H_OFF_COLOR],
-          reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]),
-          reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]),
-          reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]), tabs};
+  Lists ls{lists + lists[H_OFF_COLOR],
+           reinterpret_cast<const int2*>(lists + lists[H_OFF_SITES]),
+           reinterpret_cast<const int2*>(lists + lists[H_OFF_INCS]),
+           reinterpret_cast<const uint32_t*>(lists + lists[H_OFF_SCOPE]), tabs,
+           nullptr, nullptr, nullptr};
+  if (GATHER) {
+    ls.gsites = lists + lists[H_OFF_GSITES];
+    ls.gincs = reinterpret_cast<const int4*>(lists + lists[H_OFF_GINCS]);
+    ls.gscope = reinterpret_cast<const int2*>(lists + lists[H_OFF_GSCOPE]);
+  }
+  return ls;
+}
+
+// One live gather incidence of a site: its table entries for the in-card
+// outcomes (bits of km) added into acc, at gw.x + base + k * gw.y, where
+// base is the sum of state * stride over its scope entries, int32 as the
+// reference computes it.
+template <int KMAX>
+__device__ __forceinline__ void add_gather(float (&acc)[KMAX], const float* tabs,
+                                           int4 gw, int base, uint32_t km, int k) {
+  const int idx = gw.x + base;
+#pragma unroll
+  for (int kk = 0; kk < KMAX; ++kk)
+    if (kk < k && ((km >> kk) & 1u)) acc[kk] = __fadd_rn(acc[kk], tabs[idx + kk * gw.y]);
 }
 
 // The inverse-CDF draw of one site from its summed logits lg[0..k), its
@@ -208,8 +253,9 @@ __device__ __forceinline__ int draw_site(float (&lg)[KMAX], uint32_t km, int k,
 // holds every instance to 32 registers and spills the logits at card
 // bounds above 2, and the binary instance gains nothing from the second
 // block (instruction throughput bounds the kernel, not latency).
-template <int KMAX, bool COUNT>
-__global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
+template <int KMAX, bool COUNT, bool GATHER>
+__global__ void __launch_bounds__(MAX_THREADS(KMAX, GATHER), 1)
+gibbs_window_kernel(const Params p) {
   // state rows are packed BITS to a row, 32 / BITS rows to a word
   constexpr int BITS = KMAX <= 2 ? 1 : KMAX <= 4 ? 2 : 4;
   constexpr int RSH = BITS == 1 ? 5 : BITS == 2 ? 4 : 3;  // log2(rows per word)
@@ -250,7 +296,7 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
   __syncthreads();
   if (c >= p.c_total) return;  // no barrier below
 
-  const Lists ls = open_lists(lists, tabs);
+  const Lists ls = open_lists<GATHER>(lists, tabs);
 
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
@@ -260,7 +306,7 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
 
   for (int si = 0; si < p.num_sweeps; ++si) {
     const int hsel = si >= p.half_point ? 1 : 0;
-    int site = 0, inc = 0, q = 0;
+    int site = 0, inc = 0, q = 0, ginc = 0, gq = 0;
     for (int ci = 0; ci < p.nc; ++ci) {
       const uint32_t counter =
           cell + 2654435761u * (static_cast<uint32_t>(si) * static_cast<uint32_t>(p.nc) +
@@ -289,6 +335,26 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
           for (int kk = 0; kk < KMAX; ++kk)
             if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
         }
+        if (GATHER) {
+          float ga[KMAX];
+#pragma unroll
+          for (int kk = 0; kk < KMAX; ++kk) ga[kk] = 0.0f;
+          for (const int ginc_end = ls.gsites[site]; ginc < ginc_end; ++ginc) {
+            const int4 gw = ls.gincs[ginc];
+            int base = 0;
+#pragma unroll 1
+            for (; gq < gw.z; ++gq) {
+              const int2 e = ls.gscope[gq];
+              const uint32_t row = static_cast<uint32_t>(e.x);
+              const uint32_t v = (sm[(row >> RSH) * T + tid] >> ((row & RMASK) * BITS)) & VMASK;
+              base += static_cast<int>(v) * e.y;
+            }
+            add_gather<KMAX>(ga, ls.tabs, gw, base, km, k);
+          }
+#pragma unroll
+          for (int kk = 0; kk < KMAX; ++kk)
+            if (kk < k) lg[kk] = __fadd_rn(lg[kk], ga[kk]);
+        }
         const int newv = draw_site<KMAX>(lg, km, k, gi, lane_mix, counter);
         uint32_t* word = sm + (site >> RSH) * T + tid;
         const int sh = (site & RMASK) * BITS;
@@ -311,8 +377,9 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_kernel(const Params p) {
 // hash row, lane and counter, so the same draws.  A chain's state is one
 // byte a row here, since lanes write neighbouring rows at once; counts are
 // reductions.  blockDim.x / 32 chains share a block's staged lists.
-template <int KMAX, bool COUNT>
-__global__ void __launch_bounds__(1024, 1) gibbs_window_sites_kernel(const Params p) {
+template <int KMAX, bool COUNT, bool GATHER>
+__global__ void __launch_bounds__(MAX_THREADS(KMAX, GATHER), 1)
+gibbs_window_sites_kernel(const Params p) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int W = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
@@ -338,7 +405,7 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_sites_kernel(const Param
   __syncthreads();
   if (c >= p.c_total) return;  // the whole warp leaves; only __syncwarp below
 
-  const Lists ls = open_lists(lists, tabs);
+  const Lists ls = open_lists<GATHER>(lists, tabs);
 
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
@@ -374,6 +441,24 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_sites_kernel(const Param
           for (int kk = 0; kk < KMAX; ++kk)
             if (kk < k) lg[kk] = __fadd_rn(lg[kk], t[kk]);
         }
+        if (GATHER) {
+          float ga[KMAX];
+#pragma unroll
+          for (int kk = 0; kk < KMAX; ++kk) ga[kk] = 0.0f;
+          for (int ginc = site > 0 ? ls.gsites[site - 1] : 0; ginc < ls.gsites[site]; ++ginc) {
+            const int4 gw = ls.gincs[ginc];
+            int base = 0;
+#pragma unroll 1
+            for (int gq = ginc > 0 ? ls.gincs[ginc - 1].z : 0; gq < gw.z; ++gq) {
+              const int2 e = ls.gscope[gq];
+              base += static_cast<int>(sm[e.x]) * e.y;
+            }
+            add_gather<KMAX>(ga, ls.tabs, gw, base, km, k);
+          }
+#pragma unroll
+          for (int kk = 0; kk < KMAX; ++kk)
+            if (kk < k) lg[kk] = __fadd_rn(lg[kk], ga[kk]);
+        }
         const int newv = draw_site<KMAX>(lg, km, k, gi, lane_mix, counter);
         // no site of this color reads another: write at once
         sm[site] = static_cast<uint8_t>(newv);
@@ -390,21 +475,28 @@ __global__ void __launch_bounds__(1024, 1) gibbs_window_sites_kernel(const Param
 
 using Kernel = void (*)(const Params);
 
-template <int KMAX>
+template <int KMAX, bool GATHER>
 Kernel pick_form(bool count, bool sites) {
   if (sites)
-    return count ? gibbs_window_sites_kernel<KMAX, true>
-                 : gibbs_window_sites_kernel<KMAX, false>;
-  return count ? gibbs_window_kernel<KMAX, true> : gibbs_window_kernel<KMAX, false>;
+    return count ? gibbs_window_sites_kernel<KMAX, true, GATHER>
+                 : gibbs_window_sites_kernel<KMAX, false, GATHER>;
+  return count ? gibbs_window_kernel<KMAX, true, GATHER>
+               : gibbs_window_kernel<KMAX, false, GATHER>;
+}
+
+template <int KMAX>
+Kernel pick_bank(bool count, bool sites, bool gather) {
+  return gather ? pick_form<KMAX, true>(count, sites) : pick_form<KMAX, false>(count, sites);
 }
 
 // The template instance for card bound k, counted or not, in the
-// thread-per-chain or the site-parallel form; nullptr for a card above 16.
-Kernel pick(int k, bool count, bool sites) {
-  if (k <= 2) return pick_form<2>(count, sites);
-  if (k <= 4) return pick_form<4>(count, sites);
-  if (k <= 8) return pick_form<8>(count, sites);
-  if (k <= 16) return pick_form<16>(count, sites);
+// thread-per-chain or the site-parallel form, with or without the gather
+// walk; nullptr for a card above 16.
+Kernel pick(int k, bool count, bool sites, bool gather) {
+  if (k <= 2) return pick_bank<2>(count, sites, gather);
+  if (k <= 4) return pick_bank<4>(count, sites, gather);
+  if (k <= 8) return pick_bank<8>(count, sites, gather);
+  if (k <= 16) return pick_bank<16>(count, sites, gather);
   return nullptr;
 }
 
@@ -416,9 +508,9 @@ Kernel pick(int k, bool count, bool sites) {
 // out[0..3] = resident blocks per SM for `threads` threads and `smem` bytes
 // of dynamic shared memory, registers per thread, bytes of local memory
 // per thread (spills), and the most threads a block may have.
-extern "C" int gibbs_window_occupancy(int k, int count, int sites, int threads,
-                                      int smem, void* out4) {
-  Kernel kern = pick(k, count != 0, sites != 0);
+extern "C" int gibbs_window_occupancy(int k, int count, int sites, int gather,
+                                      int threads, int smem, void* out4) {
+  Kernel kern = pick(k, count != 0, sites != 0, gather != 0);
   if (kern == nullptr) return 1000;
   auto* out = static_cast<int*>(out4);
   cudaError_t err = cudaFuncSetAttribute(
@@ -437,14 +529,15 @@ extern "C" int gibbs_window_occupancy(int k, int count, int sites, int threads,
 
 // One window for n variants x c chains on `stream`; see Params.  `sites`
 // picks the site-parallel form (a warp per chain, `threads` a multiple of
-// 32) over the thread-per-chain form.
+// 32) over the thread-per-chain form; `gather` the instances that walk the
+// gather bank too.
 extern "C" int gibbs_window_launch(
     const void* c_lists, const void* c_tables, const void* c_rows, void* state,
     void* counts, int n, int lw, int tw, int rw, int nc, int g, int k, int nvp,
     int c, int seed, int num_sweeps, int half_point, int cb, int count, int sites,
-    int stage_lists, int stage_tables, int state_words, int threads, int smem,
-    void* stream) {
-  Kernel kern = pick(k, count != 0, sites != 0);
+    int gather, int stage_lists, int stage_tables, int state_words, int threads,
+    int smem, void* stream) {
+  Kernel kern = pick(k, count != 0, sites != 0, gather != 0);
   if (kern == nullptr) return 1000;
   Params p;
   p.c_lists = static_cast<const int32_t*>(c_lists);

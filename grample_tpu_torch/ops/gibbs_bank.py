@@ -2,12 +2,16 @@
 
 Counterpart of ``grample_tpu/ops/gibbs_xla.py`` (``_color_logits``,
 ``_sample_color``, ``_advance_one``, ``advance_chains``, ``:71-258``): the
-reference's sweep for every encoding that its kernel's gate refuses.  The
-port's gate (``ops.sweep.kernel_refusal``) sends here what the CUDA kernel
-does not take: encodings with flat-table gather incidences (``gb_*``),
-above all the all-gather mode of collapse-headroom caps on wide nets, and
-nets with more state rows than the kernel's packed words hold.  It runs
-where its tensors live, on the card as on the CPU.
+reference's sweep for every encoding that its kernel's gate refuses.  It
+has two uses.  It is the plain version of the CUDA kernel's gather form
+(``ops.gibbs_cuda``), which walks encodings with flat-table gather
+incidences (``gb_*``, above all the all-gather mode of collapse-headroom
+caps on wide nets): the kernel route runs it for CPU tensors, and the
+smoke run holds the kernel against it on the card.  And it is the
+torch-ops route for what the port's gate (``ops.sweep.kernel_refusal``)
+sends here: cards above 16, and nets with more state rows than the
+kernel's packed words or shared memory hold.  It runs where its tensors
+live, on the card as on the CPU.
 
 ``window_ops`` has the signature and the result of
 ``ops.gibbs_cuda.gibbs_window`` and ``ops.gibbs_torch.window_plain``.  Per

@@ -7,7 +7,11 @@ launches the kernel on the current stream or raises.
 ``gibbs_window.launches_by_form`` the same by kernel form.
 
 The kernel reads the compact work lists of ``ops.layout`` (``c_lists``,
-``c_tables``, ``c_rows``), never the dense rectangles: on this card a
+``c_tables``, ``c_rows``), never the dense rectangles.  An encoding with a
+gather bank (``uses_gather``) launches the kernel's gather form, which
+walks the gather incidences after the dense ones and adds their sum to
+the dense sum (the reference's ``gibbs_xla.py:129-141``); its plain
+version is ``ops.gibbs_bank.window_ops``.  On this card a
 window is bound by the operations issued per site and by how many warps
 an SM keeps resident, so the launch is shaped (``plan_launch``) from the
 bytes the live work needs, not from the caps:
@@ -43,6 +47,10 @@ bytes the live work needs, not from the caps:
 
 Packing the state (1, 2 or 4 bits a row in the thread-per-chain form) is
 what keeps a Promedus-shaped net's 256-thread blocks at 29 KB of state.
+
+The gather form keeps a second accumulator of ``K`` logits; at card
+bounds above 8 its launch bound is 512 threads a block
+(``max_threads``), so that the two accumulators stay in registers.
 """
 
 from __future__ import annotations
@@ -72,6 +80,18 @@ SITE_CHAINS = (4, 8, 16, 32)
 SITE_FORM_WARPS = 8
 
 
+def max_threads(k: int, gather: bool) -> int:
+    """The most threads a block of the kernel's instance for card bound
+    ``k`` may have (its ``__launch_bounds__``)."""
+    return 512 if gather and k > 8 else 1024
+
+
+def uses_gather(kst: dict) -> bool:
+    """Whether the encoding of sweep tensors ``kst`` has a gather bank
+    (``Fg`` > 0), which takes the kernel's gather form."""
+    return "gb_offset" in kst and kst["gb_offset"].shape[3] > 0
+
+
 def state_bits(k: int) -> int:
     """Bits of a packed state row at card bound ``k``."""
     return 1 if k <= 2 else 2 if k <= 4 else 4
@@ -96,9 +116,10 @@ class Plan:
     stage_lists: bool
     stage_tables: bool
     count: bool
-    list_bytes: int  # the group's padded list blob
-    table_bytes: int  # the group's padded compact tables
+    list_bytes: int  # the group's padded list blob (both banks)
+    table_bytes: int  # the group's padded compact tables (both banks)
     state_bytes: int
+    gather: bool  # the gather form (``uses_gather``)
 
     @property
     def smem(self) -> int:
@@ -120,10 +141,13 @@ def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Pl
     n, list_bytes = kst["c_lists"].shape[0], kst["c_lists"].shape[1] * 4
     table_bytes = kst["c_tables"].shape[1] * 4
     rows, k = kst["c_rows"].shape[1], kst["k_kmask"].shape[3]
+    gather = uses_gather(kst)
     if sites is None:
         sites = n * c <= sm_count * SITE_FORM_WARPS * 32
     best = None
     for threads in ([32 * w for w in SITE_CHAINS] if sites else THREAD_CHOICES):
+        if threads > max_threads(k, gather):
+            continue
         chains = threads // 32 if sites else threads  # per block
         sbytes = chains * rows if sites else state_bytes(rows, k, threads)
         stage = _staging(sbytes, list_bytes, table_bytes)
@@ -135,7 +159,8 @@ def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Pl
         key = (min(blocks, resident * sm_count) * (threads // 32), min(blocks, sm_count),
                threads)
         if best is None or key > best[0]:
-            best = (key, Plan(sites, threads, *stage, count, list_bytes, table_bytes, sbytes))
+            best = (key, Plan(sites, threads, *stage, count, list_bytes, table_bytes, sbytes,
+                              gather))
     if best is None:
         raise ValueError(f"{rows} state rows exceed a block's shared memory")
     return best[1]
@@ -145,10 +170,10 @@ def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Pl
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library()
     fn = lib.gibbs_window_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     occ = lib.gibbs_window_occupancy
-    occ.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    occ.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     occ.restype = ctypes.c_int
     return lib
 
@@ -160,7 +185,8 @@ def occupancy(k: int, plan: Plan) -> dict:
     threads a block may have."""
     out = (ctypes.c_int * 4)()
     err = _lib().gibbs_window_occupancy(int(k), int(plan.count), int(plan.sites),
-                                        plan.threads, plan.smem, ctypes.addressof(out))
+                                        int(plan.gather), plan.threads, plan.smem,
+                                        ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"gibbs_window_occupancy failed: CUDA error {err}")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "max_threads"), out))
@@ -196,8 +222,9 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
     if plan is None:
         plan = plan_launch(kst, c, bool(count),
                            torch.cuda.get_device_properties(dev).multi_processor_count)
-    if (plan.count != bool(count) or plan.smem > MAX_SMEM_BYTES or plan.threads % 32
-            or not 32 <= plan.threads <= 1024
+    if (plan.count != bool(count) or plan.gather != uses_gather(kst)
+            or plan.smem > MAX_SMEM_BYTES or plan.threads % 32
+            or not 32 <= plan.threads <= max_threads(k, plan.gather)
             or plan.state_bytes < (plan.threads // 32 * kst["c_rows"].shape[1] if plan.sites
                                    else state_bytes(kst["c_rows"].shape[1], k, plan.threads))):
         raise ValueError(f"launch plan does not fit this window: {plan}")
@@ -212,7 +239,7 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
             n, kst["c_lists"].shape[1], kst["c_tables"].shape[1],
             kst["c_rows"].shape[1], nc, g, k, nvp, c, _as_int32(seed),
             int(num_sweeps), int(half_point), int(cb), int(plan.count),
-            int(plan.sites), int(plan.stage_lists), int(plan.stage_tables),
+            int(plan.sites), int(plan.gather), int(plan.stage_lists), int(plan.stage_tables),
             state_words(kst["c_rows"].shape[1], k), plan.threads, plan.smem, stream)
     if err != 0:
         raise RuntimeError(f"gibbs_window_launch failed: CUDA error {err}")
@@ -230,7 +257,8 @@ gibbs_window.launches_by_form = {}
 def form_name(plan: Plan) -> str:
     """The kernel form a plan launches, as ``launches_by_form`` keys it."""
     return (("site-parallel" if plan.sites else "thread per chain") + ", "
-            + ("counted" if plan.count else "uncounted"))
+            + ("counted" if plan.count else "uncounted")
+            + (", gather bank" if plan.gather else ""))
 
 
 def _as_int32(x: int) -> int:

@@ -30,10 +30,12 @@ order and are never written by a sweep.
 The dense rectangles above are padded to the caps of the whole group:
 on a Promedus-shaped collapse encoding fewer than one slot row in four is
 a site, one incidence slot in twelve carries a table, and one scope slot
-in eighty has a stride.  A GPU pays for every padded slot it visits, so
-``kernel_stack`` also derives **compact work lists** (``compact_variant``)
-that hold the live work only; the CUDA kernel walks these and nothing
-else.  The dense tensors stay as the plain version's input.
+in eighty has a stride; at its all-gather headroom caps one gather slot
+in twelve is live and one gather scope slot in eighty.  A GPU pays for
+every padded slot it visits, so ``kernel_stack`` also derives **compact
+work lists** (``compact_variant``) that hold the live work only, of both
+banks; the CUDA kernel walks these and nothing else.  The dense tensors
+stay as the plain versions' input.
 
   c_lists  [N, LW] int32 — one self-describing blob per variant: a header
            of ``HDR`` words (see ``H_*``), then, each section starting on
@@ -42,23 +44,37 @@ else.  The dense tensors stay as the plain version's input.
              sites     [L, 2]    (gi | kmask bits << 16, end index into incs)
              incs      [I, 2]    (first table row, end index into scope)
              scope     [Q]       dense state row | stride << 16
+             gsites    [L]       end index (into gincs) of each site
+             gincs     [Ig, 4]   (offset into c_tables, self stride, end
+                                 index into gscope, 0)
+             gscope    [Qg, 2]   (dense state row, stride)
            live sites colour-major in kernel order; a site's live
-           incidences in ``f`` order; an incidence's live scope entries in
-           ``s`` order.  ``gi`` is the site's row within its colour in
-           kernel order (its hash row); its count slot is ``ci * G + gi``.
-  c_tables [N, TW] f32 — the live incidences' tables back to back, each
-           cut to the rows its strides can reach, ``K`` floats a row
+           incidences of each bank in ``f`` (``Fg``) order; an
+           incidence's live scope entries in ``s`` order.  ``gi`` is the
+           site's row within its colour in kernel order (its hash row);
+           its count slot is ``ci * G + gi``.  The gather sections are
+           empty when the encoding has no gather bank (``Fg`` = 0).
+  c_tables [N, TW] f32 — the live dense incidences' tables back to back,
+           each cut to the rows its strides can reach, ``K`` floats a
+           row; then (from float ``H_GTAB0``) the stretches of the flat
+           table that live gather incidences can read, back to back
   c_rows   [N, RW] int32 — dense state row -> kernel row: the ``L`` live
            sites first, in list order, then the tail rows that some live
-           scope entry reads.  The kernel keeps these rows of a chain's
-           state on chip and no others.
+           scope entry of either bank reads.  The kernel keeps these rows
+           of a chain's state on chip and no others.
 
-A row is live when its ``k_kmask`` has any bit; an incidence when its
+A row is live when its ``k_kmask`` has any bit; a dense incidence when its
 site is live and its table is not identically zero (adding an all-zero
-row changes no sum: ``x + 0.0f == x``); a scope entry when its incidence
-is live and its stride is positive.  ``LW``, ``TW`` and ``RW`` are the
-largest need among the stacked variants, rounded up (``compact_capacity``), so
-a group's tensors keep one shape while variants come and go.
+row changes no sum: ``x + 0.0f == x``); a gather incidence when its site
+is live and its ``gb_mask`` is set; a scope entry of either bank when its
+incidence is live and its stride is positive.  A gather stride is a full
+int32 word (the reference's full-table strides reach 2^23,
+``gibbs_xla.py:133``); a gather incidence reads the flat table at
+``offset + sum(state * stride) + k * self_stride`` for the outcomes ``k``
+of its site's card, which is what its stretch of the flat table covers.
+``LW``, ``TW`` and ``RW`` are the largest need among the stacked
+variants, rounded up (``compact_capacity``), so a group's tensors keep one
+shape while variants come and go.
 """
 
 from __future__ import annotations
@@ -68,7 +84,8 @@ import numpy as np
 #: words of a ``c_lists`` header, and what each holds
 HDR = 16
 (H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_OFF_COLOR, H_OFF_SITES,
- H_OFF_INCS, H_OFF_SCOPE, H_WORDS) = range(10)
+ H_OFF_INCS, H_OFF_SCOPE, H_WORDS, H_GINCS, H_GSCOPE, H_OFF_GSITES, H_OFF_GINCS,
+ H_OFF_GSCOPE, H_GTAB0) = range(16)
 
 COMPACT_KEYS = ("c_lists", "c_tables", "c_rows")
 
@@ -110,9 +127,9 @@ GATHER_KEYS = ("gb_offset", "gb_self_stride", "gb_scope_strides", "gb_mask")
 
 def kernel_stack(stack: dict, compact: bool = True) -> dict:
     """Kernel-order sweep constants for a stacked encoding.  ``compact``
-    False leaves out the kernel's work lists (``COMPACT_KEYS``): they
-    cover the dense bank only, and an encoding that the kernel does not
-    take (``ops.sweep.kernel_refusal``) may not fit their packed words."""
+    False leaves out the kernel's work lists (``COMPACT_KEYS``) of both
+    banks: an encoding that the kernel does not take
+    (``ops.sweep.kernel_refusal``) may not fit their packed words."""
     n, nc, G = stack["sw_scope_vars"].shape[:3]
     nvp = stack["old_of_new"].shape[1]
     nslot = nc * G
@@ -153,11 +170,14 @@ def kernel_stack(stack: dict, compact: bool = True) -> dict:
     return {**dense, **compact_stack(dense, stack["cards"], reals)}
 
 
-def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None) -> dict:
+def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None,
+                    gather=None) -> dict:
     """Compact work lists of one variant from its dense kernel-order
     arrays (no leading axis), the card of every kernel row ``row_cards``
-    [NVp] and, where the caller has them, the real incidences of
-    ``k_tables``; unpadded.  See the module doc for the format."""
+    [NVp], where the caller has them the real incidences of ``k_tables``,
+    and its gather bank ``gather`` (the ``GATHER_KEYS``, ``gb_scope_vars``
+    in kernel rows, and its flat ``tables`` [T]; None or ``Fg`` = 0 for
+    none); unpadded.  See the module doc for the format."""
     nc, G, F, S = k_scope.shape
     oa, K = k_tables.shape[3:]
     if G > MAX_DENSE_ROWS or K > 16:
@@ -173,9 +193,10 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None)
     live_sc = strides > 0
     if strides.size and strides.max() >= MAX_STRIDE:
         raise ValueError(f"stride {strides.max()} does not fit a scope word")
+    bank = _gather_bank(gather, live_site, k_kmask, row_cards)
 
     site_rows = (ci * G + gi).astype(np.int64)
-    read = np.unique(scope[live_sc])
+    read = np.unique(np.concatenate([scope[live_sc], bank["scope"]]))
     rows = np.concatenate([site_rows, read[~np.isin(read, site_rows)]])
     if rows.size > MAX_DENSE_ROWS:
         raise ValueError(f"{rows.size} live state rows do not fit a scope word")
@@ -188,6 +209,9 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None)
     first_row = np.cumsum(reach) - reach
     tables = k_tables[live_site][inc_of_site]  # [I, OA, K]
     tables = tables[np.arange(oa)[None, :] < reach[:, None]].reshape(-1)
+    if tables.size + bank["tables"].size >= 2 ** 31:
+        raise ValueError(f"{tables.size + bank['tables'].size} compact table floats "
+                         "exceed int32 offsets")
 
     kbits = (k_kmask[live_site].astype(np.int64) << np.arange(K)).sum(axis=1)
     sections = [
@@ -196,21 +220,67 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None)
                  axis=1).reshape(-1),  # sites
         np.stack([first_row, np.cumsum(live_sc.sum(axis=1))], axis=1).reshape(-1),  # incs
         dense_of[scope[live_sc]] | (strides[live_sc].astype(np.int64) << 16),  # scope
+        bank["site_end"],  # gsites
+        np.stack([bank["offset"] + tables.size, bank["self_stride"], bank["scope_end"],
+                  np.zeros_like(bank["offset"])], axis=1).reshape(-1),  # gincs
+        np.stack([dense_of[bank["scope"]], bank["strides"]], axis=1).reshape(-1),  # gscope
     ]
     head = np.zeros(HDR, dtype=np.int64)
-    head[[H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS]] = (
-        ci.size, rows.size, scope.shape[0], int(live_sc.sum()), tables.size)
+    head[[H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_GINCS, H_GSCOPE, H_GTAB0]] = (
+        ci.size, rows.size, scope.shape[0], int(live_sc.sum()),
+        tables.size + bank["tables"].size, bank["offset"].size, bank["scope"].size,
+        tables.size)
     words = [head]
     off = HDR
-    for h, sec in zip((H_OFF_COLOR, H_OFF_SITES, H_OFF_INCS, H_OFF_SCOPE), sections):
+    for h, sec in zip((H_OFF_COLOR, H_OFF_SITES, H_OFF_INCS, H_OFF_SCOPE, H_OFF_GSITES,
+                       H_OFF_GINCS, H_OFF_GSCOPE), sections):
         head[h] = off
         sec = np.concatenate([sec, np.zeros(-sec.size % 4, dtype=np.int64)])
         words.append(sec)
         off += sec.size
     head[H_WORDS] = off
     return {"c_lists": np.concatenate(words).astype(np.int32),
-            "c_tables": tables.astype(np.float32),
+            "c_tables": np.concatenate([tables, bank["tables"]]).astype(np.float32),
             "c_rows": rows.astype(np.int32)}
+
+
+def _gather_bank(gather, live_site, k_kmask, row_cards) -> dict:
+    """The live gather work of one variant (``compact_variant``'s
+    ``gather``) as flat arrays: each live site's end index into the live
+    incidences (``site_end``, empty when the encoding has no gather
+    bank); each live incidence's offset into the cut flat table
+    ``tables``, self stride and end index into the live scope entries;
+    each live scope entry's kernel row and stride."""
+    none = np.zeros(0, dtype=np.int64)
+    if gather is None or gather["gb_offset"].shape[-1] == 0:
+        return {"site_end": none, "offset": none, "self_stride": none, "scope_end": none,
+                "scope": none, "strides": none, "tables": np.zeros(0, dtype=np.float32)}
+    inc_of_site = gather["gb_mask"].astype(bool)[live_site]  # [L, Fg]
+    scope = gather["gb_scope_vars"][live_site][inc_of_site].astype(np.int64)  # [Ig, S]
+    strides = gather["gb_scope_strides"][live_site][inc_of_site].astype(np.int64)
+    live_sc = strides > 0
+    offset = gather["gb_offset"][live_site][inc_of_site].astype(np.int64)
+    self_stride = gather["gb_self_stride"][live_site][inc_of_site].astype(np.int64)
+    # the kernel reads the outcomes of the site's card (its kmask bits)
+    card = (k_kmask[live_site].astype(np.int64) * np.arange(1, k_kmask.shape[-1] + 1)).max(axis=1)
+    card = np.repeat(card, inc_of_site.sum(axis=1))
+    reach = 1 + ((row_cards[scope] - 1) * strides * live_sc).sum(axis=1) + (card - 1) * self_stride
+    tables, offset = _cut_flat(np.asarray(gather["tables"]), offset, reach)
+    return {"site_end": np.cumsum(inc_of_site.sum(axis=1)), "offset": offset,
+            "self_stride": self_stride, "scope_end": np.cumsum(live_sc.sum(axis=1)),
+            "scope": scope[live_sc], "strides": strides[live_sc], "tables": tables}
+
+
+def _cut_flat(flat: np.ndarray, start: np.ndarray, reach: np.ndarray) -> tuple:
+    """The entries of the flat table ``flat`` that the stretches
+    ``[start, start + reach)`` cover, back to back, and where each start
+    lands among them.  A stretch lies whole in the cut, so an index
+    ``start + d`` within it lands ``d`` past its start."""
+    edge = np.zeros(flat.size + 1, dtype=np.int64)
+    np.add.at(edge, start, 1)
+    np.add.at(edge, start + reach, -1)
+    covered = np.cumsum(edge[:-1]) > 0
+    return flat[covered], (np.cumsum(covered) - 1)[start]
 
 
 def compact_capacity(key: str, need: int) -> int:
@@ -222,12 +292,17 @@ def compact_capacity(key: str, need: int) -> int:
 def compact_stack(dense: dict, cards: np.ndarray, reals=None) -> dict:
     """Compact work lists of every variant of ``kernel_stack``'s dense
     output (``cards`` [N, V+1] by old var id; ``reals``: each variant's
-    real incidences in kernel order, where the caller has them),
-    zero-padded to one capacity per tensor and stacked."""
+    real incidences in kernel order, where the caller has them; the
+    gather bank where ``dense`` holds it), zero-padded to one capacity
+    per tensor and stacked."""
+    banks = [None] * dense["k_scope"].shape[0]
+    if "gb_offset" in dense:
+        banks = [{key: dense[key][i] for key in (*GATHER_KEYS, "gb_scope_vars", "tables")}
+                 for i in range(len(banks))]
     per = [compact_variant(dense["k_scope"][i], dense["k_strides"][i],
                            dense["k_tables"][i], dense["k_kmask"][i],
                            np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64),
-                           None if reals is None else reals[i])
+                           None if reals is None else reals[i], banks[i])
            for i in range(dense["k_scope"].shape[0])]
     out = {}
     for key in COMPACT_KEYS:
@@ -237,6 +312,8 @@ def compact_stack(dense: dict, cards: np.ndarray, reals=None) -> dict:
 
 
 def compact_counts(c_lists) -> np.ndarray:
-    """[N, 5] live sites, state rows, incidences, scope entries and table
-    floats of each variant, read from the headers of ``c_lists``."""
-    return np.asarray(c_lists)[:, [H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS]]
+    """[N, 7] live sites, state rows, dense incidences, dense scope
+    entries, table floats (both banks), gather incidences and gather scope
+    entries of each variant, read from the headers of ``c_lists``."""
+    return np.asarray(c_lists)[:, [H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS,
+                                   H_GINCS, H_GSCOPE]]

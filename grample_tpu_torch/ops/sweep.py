@@ -8,16 +8,19 @@ slot counts ``[N, 2, K, NSLOT, C]`` onto the split-half window tensor
 
 The window has two routes, chosen from the group's caps before any launch
 (``route_for``).  ``"kernel"``: the CUDA kernel (``ops.gibbs_cuda``) for
-CUDA tensors and its plain PyTorch version (``ops.gibbs_torch``) for CPU
-tensors; a CUDA tensor never takes the plain path.  ``"ops"``: batched
-torch ops on the tensors' device (``ops.gibbs_bank``, the counterpart of
-the reference's XLA sweep), for what ``kernel_refusal`` names: the kernel
-takes the dense local-table bank only, local tables of at most ``OA_MAX``
-rows, cards up to 16, and at most ``gibbs_cuda.MAX_ROWS`` state rows whose
-packed state fits a 32-thread block's shared memory (what a launch really
-needs is sized from its live rows, by ``gibbs_cuda.plan_launch``).
+CUDA tensors, on both banks (the dense local tables and the flat-table
+gather bank), and for CPU tensors the plain PyTorch version of the form
+the encoding needs (``ops.gibbs_torch.window_plain`` for the dense bank
+alone, ``ops.gibbs_bank.window_ops`` with a gather bank); a CUDA tensor
+never takes a plain path.  ``"ops"``: batched torch ops on the tensors'
+device (``ops.gibbs_bank``, the counterpart of the reference's XLA
+sweep), for what ``kernel_refusal`` names: cards above 16, more state
+rows than a 32-thread block's shared memory holds packed or than
+``gibbs_cuda.MAX_ROWS`` (what a launch really needs is sized from its live
+rows, by ``gibbs_cuda.plan_launch``), local tables wider than ``OA_MAX``
+rows, and compact tables beyond int32 offsets.
 ``sweep_tensors`` carries every input: the dense kernel-order rectangles
-that the plain version and the ops route read, the gather bank, and the
+that the plain versions and the ops route read, the gather bank, and the
 compact work lists (``ops.layout``) that the kernel walks, since on the
 card a window is bound by the operations and shared-memory loads it makes
 per slot visited, and most slots of the rectangles are padding.
@@ -56,13 +59,10 @@ OA_MAX = BASE_DENSE_LIMIT
 
 def kernel_refusal(caps):
     """Why the CUDA kernel does not take an encoding at ``caps``, or None
-    when it does (the reference's ``pallas_eligible``,
-    ``gibbs_pallas.py:229-253``).  What it refuses runs as torch ops
-    (``ops.gibbs_bank``)."""
-    if caps.gfac_cap > 0:
-        return (f"encoding uses the gather bank (gfac_cap={caps.gfac_cap}): the "
-                "kernel takes dense local tables only (incidences of at most "
-                f"{caps.oa_dense_cap} local rows)")
+    when it does (the port's counterpart of the reference's
+    ``pallas_eligible``, ``gibbs_pallas.py:229-253``, which refuses the
+    gather bank; the port's kernel walks it).  What it refuses runs as
+    torch ops (``ops.gibbs_bank``)."""
     if caps.oa_cap > OA_MAX:
         return f"local tables of {caps.oa_cap} rows exceed the kernel's {OA_MAX}"
     if caps.max_card > gibbs_cuda.MAX_CARD:
@@ -72,6 +72,11 @@ def kernel_refusal(caps):
             or gibbs_cuda.state_bytes(caps.num_rows, caps.max_card, 32)
             > gibbs_cuda.MAX_SMEM_BYTES):
         return f"{caps.num_rows} state rows exceed the sweep kernel's shared memory"
+    floats = (caps.color_cap * caps.group_cap * caps.adj_cap * caps.oa_cap * caps.max_card
+              + caps.table_cap)
+    if floats >= 2 ** 31:
+        return (f"compact tables of up to {floats} floats exceed the kernel's int32 "
+                "table offsets")
     return None
 
 
@@ -139,10 +144,11 @@ def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,
            count: bool, cb: int, route: str = "kernel"):
     """One window by the group's ``route`` (``route_for`` of its caps).
     ``"kernel"``: the CUDA kernel (on the compact lists) for CUDA
-    tensors, its plain version (on the dense tensors) for CPU tensors,
-    else raise.  ``"ops"``: the batched torch ops of ``ops.gibbs_bank``
-    on the tensors' device.  Nothing here turns a failed launch into
-    another route."""
+    tensors; for CPU tensors its plain version on the dense tensors
+    (``window_plain``, or ``window_ops`` when the encoding has a gather
+    bank: on a dense encoding the two are equal bit for bit); else raise.
+    ``"ops"``: the batched torch ops of ``ops.gibbs_bank`` on the tensors'
+    device.  Nothing here turns a failed launch into another route."""
     if route == "ops":
         return window_ops(kst, state_p, seed, num_sweeps, half_point, count, cb)
     if route != "kernel":
@@ -151,6 +157,8 @@ def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,
         return gibbs_cuda.gibbs_window(kst, state_p, seed, num_sweeps,
                                        half_point, count, cb)
     if state_p.device.type == "cpu":
+        if gibbs_cuda.uses_gather(kst):
+            return window_ops(kst, state_p, seed, num_sweeps, half_point, count, cb)
         return window_plain(*[kst[k] for k in KERNEL_KEYS], state_p, seed,
                             num_sweeps, half_point, count, cb)
     raise ValueError(f"no sweep for device {state_p.device}")

@@ -23,9 +23,10 @@ classified by the factor's *local* table size OA = table_size / card(var):
     local mixed-radix base index from the neighbours' states
     (``sw_scope_vars`` × ``sw_other_strides``) and reads row ``base``.
   - **gather bank** ``gb_*`` (larger incidences): indexes the flat
-    ``tables`` array directly.  The CUDA kernel does not take it
-    (``ops.sweep.kernel_refusal``); an encoding that uses it sweeps as
-    torch ops (``ops.gibbs_bank``).  The collapsed sampler's variants
+    ``tables`` array directly.  The CUDA kernel walks it in its gather
+    form (``ops.gibbs_cuda``), from compact lists and the stretches of
+    ``tables`` that live incidences read (``ops.layout``); its plain
+    version is ``ops.gibbs_bank.window_ops``.  The collapsed sampler's variants
     never use it: ``caps_for_variants`` raises the dense threshold to
     their widest incidence, which the collapse guard bounds.
 

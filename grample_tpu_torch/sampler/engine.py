@@ -16,11 +16,13 @@ exactly those variants (``caps_for_variants``).
 worst-converged vars during the first half of the budget
 (``sampler/adaptive.py``).  It runs one ``ChainGroup`` on collapse-headroom
 caps where the sweep kernel takes them, else a ``SplitChainGroup``
-(``_want_split``).  Under a mesh or ``split_group="off"`` it is one group
-whatever its caps: what the kernel's gate refuses (the gather bank of a
-Promedus-shaped net's headroom caps) sweeps as torch ops
-(``ops.gibbs_bank``), and the engine logs that route with the gate's
-reason.
+(``_want_split``, the reference's question: does the dense-bank kernel
+take the plain caps and not the headroom caps).  Under a mesh or
+``split_group="off"`` it is one group whatever its caps: the gather bank
+of a Promedus-shaped net's headroom caps sweeps on the kernel's gather
+form, and what the kernel's gate refuses (cards above 16, rows beyond
+shared memory) as torch ops (``ops.gibbs_bank``); the engine logs either
+route with its reason.
 
 Reference flag units are single-site samples; the engine works in
 *sweeps* (one sweep resamples every free variable once): ``burnin``
@@ -164,7 +166,9 @@ class RunResult:
     convergence: Optional[Dict[str, np.ndarray]] = None
     samples_per_sec: float = 0.0
     aux_secs: float = 0.0  # split execution: wall spent on the aux group
-    kernel: bool = False  # throughput path swept with the CUDA kernel's route
+    # throughput path on the kernel route (the CUDA kernel on a card, its
+    # plain version on the CPU), not the torch-ops route
+    kernel: bool = False
 
 
 class Engine:
@@ -204,7 +208,7 @@ class Engine:
         self.monitor = monitor
         self.devices = devices
         self.trace_fh = None
-        self._ops_logged = set()  # gate reasons already logged
+        self._routes_logged = set()  # route lines already logged
 
     def trace(self, line: str):
         if self.trace_fh:
@@ -716,28 +720,43 @@ class Engine:
 
     def _log_route(self, group) -> None:
         """One line for every group (a split group's main and aux) whose
-        sweep takes the torch-ops route, with the kernel gate's reason."""
+        sweep is not the dense-bank kernel: the torch-ops route with the
+        kernel gate's reason, or the kernel's gather form (on the CPU its
+        plain version, ``window_ops``); each line once."""
         for g in (getattr(group, "main", group), getattr(group, "aux", None)):
-            if g is None or g.route != "ops":
+            if g is None:
                 continue
-            reason = kernel_refusal(g.caps)
-            if reason not in self._ops_logged:
-                self._ops_logged.add(reason)
-                self.log(f"sweep route: torch ops on {g.device} ({reason})")
+            if g.route == "ops":
+                line = f"sweep route: torch ops on {g.device} ({kernel_refusal(g.caps)})"
+            elif g.caps.gfac_cap > 0:
+                line = (f"sweep route: kernel, gather form (gfac_cap={g.caps.gfac_cap}) on "
+                        f"{g.device}" + (", as its plain version window_ops"
+                                         if torch.device(g.device).type == "cpu" else ""))
+            else:
+                continue
+            if line not in self._routes_logged:
+                self._routes_logged.add(line)
+                self.log(line)
 
     @staticmethod
     def _want_split(cfg: EngineConfig, model) -> bool:
-        """Split execution when the sweep kernel takes the model's plain
-        caps but refuses its collapse-headroom caps (``kernel_refusal``;
-        the reference asks its kernel's ``pallas_eligible`` the same
-        question, ``engine.py:668-684``).  ``split_group`` "on"/"off"
-        overrides."""
+        """Split execution when the model's plain caps are dense-bank caps
+        the sweep kernel takes and its collapse-headroom caps are not: the
+        question the reference asks its kernel's ``pallas_eligible``
+        (``engine.py:668-684``), which refuses the gather bank.  The
+        port's kernel also walks the gather bank, but a split group keeps
+        every slot on dense tables, as the reference chooses.
+        ``split_group`` "on"/"off" overrides."""
         if cfg.split_group != "auto":
             return cfg.split_group == "on"
+
+        def dense_kernel(caps) -> bool:
+            return caps.gfac_cap == 0 and kernel_refusal(caps) is None
+
         plain = compute_caps(model, headroom_factors=0)
         head = compute_caps(model, collapse_headroom=True,
                             slot_hint=cfg.max_variants, headroom_factors=2)
-        return kernel_refusal(plain) is None and kernel_refusal(head) is not None
+        return dense_kernel(plain) and not dense_kernel(head)
 
     def save_checkpoint(self, group, runtime: float = 0.0):
         checkpoint.save_checkpoint(self.cfg.checkpoint_path, group, self.cfg,

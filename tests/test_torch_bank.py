@@ -1,8 +1,10 @@
-"""The port's torch-ops sweep route (``ops.gibbs_bank``: dense bank and
-flat-table gather bank) against the reference's XLA sweep
+"""The port's torch-ops sweep (``ops.gibbs_bank``: dense bank and
+flat-table gather bank; the plain version of the kernel's gather form and
+the route of what the kernel refuses) against the reference's XLA sweep
 (``grample_tpu/ops/gibbs_xla.py``), against the plain version of the
 kernel, against exact marginals, under a mesh, and through the adaptive
-engine on a Promedus-shaped net whose headroom caps go all-gather."""
+engine on a Promedus-shaped net whose headroom caps go all-gather (the
+kernel's gather form)."""
 
 import dataclasses
 
@@ -19,7 +21,7 @@ import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu.ops import gibbs_xla
 from grample_tpu_torch.convert import encoding_from_reference
 from grample_tpu_torch.metrics import hellinger
-from grample_tpu_torch.ops import gibbs_bank, sweep
+from grample_tpu_torch.ops import gibbs_bank, gibbs_cuda, sweep
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.pgm.exact import exact_marginals
 from grample_tpu_torch.sampler.chains import ChainGroup
@@ -28,14 +30,15 @@ from grample_tpu_torch.sampler.engine import Engine, EngineConfig
 from grample_tpu_torch.uai.writer import write_evidence, write_model
 
 from tests import torch_models
+from tests.test_torch_layout import walk_logits
 from tests.test_torch_parallel import _assert_equal, _drive_annealed, _drive_plain, _pair
+from tests.torch_models import all_gather
 
 
-def all_gather(caps):
-    """``caps`` with every incidence in the flat-table gather bank (as
-    ``tests/test_gibbs.py:219-224`` builds the mode)."""
-    return dataclasses.replace(caps, base_mode="gather", adj_cap=0, oa_cap=1,
-                               gfac_cap=caps.adj_cap + caps.gfac_cap)
+def card17(caps):
+    """``caps`` at card bound 17, which the kernel refuses: the torch-ops
+    route's own tests keep to it."""
+    return dataclasses.replace(caps, max_card=17)
 
 
 def _model(pgm, name):
@@ -106,6 +109,43 @@ def test_color_logits_match_reference(name, mode):
                 continue  # padding row
             g_ref = int(enc.new_of_old[var]) - ci * G
             np.testing.assert_allclose(got[g], want[g_ref].T, rtol=1e-5, atol=1e-6)
+            checked += 1
+    assert checked == int(m.free_mask.sum())
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("wide12", "mixed"), ("rand8_card4", "gather"), ("star8_c0", "gather"),
+    ("grid4_evid", "gather"),
+])
+def test_walker_logits_match_reference(name, mode):
+    """The kernel's walk of the compact lists of both banks
+    (``test_torch_layout.walk_logits``) against ``gibbs_xla._color_logits``
+    on the same encoding and state: every live row's in-card outcomes
+    agree to rtol 1e-5 (the reference sums the gather bank by XLA's
+    reduction, the walk in ``Fg`` order)."""
+    m = _model(ref_pgm, name)
+    enc = ref_encode.encode_model(m, _caps(ref_encode, m, mode))
+    caps = enc.caps
+    assert caps.gfac_cap > 0 and sweep.kernel_refusal(caps) is None
+    arrays = enc.arrays()
+    kst = encoding_from_reference(arrays, "cpu")
+    state = _random_state(enc, 1, 24, seed=5)
+    ref_state = jnp.asarray(state[0].T[enc.old_of_new].astype(np.float32))  # [NVp, C]
+    port_state = _kernel_state(kst, state)
+    G = caps.group_cap
+    checked = 0
+    for ci in range(caps.color_cap):
+        xs = tuple(jnp.asarray(arrays[k][ci]) for k in gibbs_xla._XS_KEYS)
+        want = np.asarray(gibbs_xla._color_logits(ref_state, jnp.asarray(enc.tables), xs))
+        got = walk_logits(kst, port_state, 0, ci).numpy()  # [G, C, K]
+        for g in range(G):
+            var = int(kst["pal_oon"][0, ci * G + g])
+            if var == caps.num_vars:
+                continue  # padding row
+            card = int(m.cards[var])
+            g_ref = int(enc.new_of_old[var]) - ci * G
+            np.testing.assert_allclose(got[g][:, :card], want[g_ref].T[:, :card],
+                                       rtol=1e-5, atol=1e-6)
             checked += 1
     assert checked == int(m.free_mask.sum())
 
@@ -206,20 +246,22 @@ def _reference_marginals(m, caps, chains, burn, sweeps, seed):
 
 @pytest.mark.parametrize("name,mode", [("wide12", "mixed"), ("rand8_card4", "gather")])
 def test_ops_route_marginals(name, mode):
-    """A group on the ops route against exact marginals and against the
+    """A group on the ops route (the gather bank at card bound 17, which
+    the kernel refuses) against exact marginals and against the
     reference's XLA sweep on the same net and caps.  512 chains x 128
     counted sweeps, taken as n = 32768 independent samples a var (half,
     for the sweeps' autocorrelation): 5 sigma(H) = 5 / sqrt(8 n) = 0.0098
     against exact, sqrt(2) times that between two estimates."""
     m = _model(port_pgm, name)
-    caps = _caps(port_encode, m, mode)
+    caps = card17(_caps(port_encode, m, mode))
     g = ChainGroup(m, 512, 128, device="cpu", caps=caps, seed=11)
     assert g.route == "ops" and "c_lists" not in (g.kstack or {})
+    assert "max card 17" in sweep.kernel_refusal(caps)
     g.add_variant(m)
     assert set(sweep.COMPACT_KEYS).isdisjoint(g.kstack)
     g.burn(32)
     g.advance()
-    got = g.merged_marginals()
+    got = g.merged_marginals()[:, :m.max_card]
     got = got / got.sum(axis=1, keepdims=True)
     free = m.free_mask
     bound = 5 / np.sqrt(8 * 32768)
@@ -242,16 +284,20 @@ def _drive_collapse_gather(g, m):
         g.rb_accumulate()
 
 
+def _headroom_gather(m):
+    return all_gather(port_encode.compute_caps(
+        m, collapse_headroom=True, slot_hint=128, headroom_factors=2))
+
+
 @pytest.mark.parametrize("drive", ["plain", "annealed", "collapse"])
 def test_sharded_equals_unsharded_on_the_ops_route(drive):
     """A 2x2 virtual mesh against one group with the same ``cb``, both on
-    all-gather caps: state, halves and totals bit for bit, through a
-    tempered burn-in (the flat tables scaled per shard) and through a
-    collapse variant written into a slot."""
+    all-gather caps at card bound 17 (the ops route): state, halves and
+    totals bit for bit, through a tempered burn-in (the flat tables
+    scaled per shard) and through a collapse variant written into a
+    slot."""
     m = torch_models.build(port_pgm, "grid4_evid")
-    caps = all_gather(port_encode.compute_caps(
-        m, collapse_headroom=True, slot_hint=128, headroom_factors=2))
-    g, p = _pair(m, "2x2", caps=caps)
+    g, p = _pair(m, "2x2", caps=card17(_headroom_gather(m)))
     assert g.route == p.route == "ops" and g.cb == 16
     run = {"plain": _drive_plain, "annealed": _drive_annealed,
            "collapse": _drive_collapse_gather}[drive]
@@ -262,6 +308,32 @@ def test_sharded_equals_unsharded_on_the_ops_route(drive):
     _assert_equal(g, p)
     for row in g.kstack:
         assert all(set(sweep.COMPACT_KEYS).isdisjoint(kst) for kst in row.values())
+
+
+@pytest.mark.parametrize("drive", ["plain", "annealed", "collapse"])
+def test_sharded_equals_unsharded_on_gather_caps(drive):
+    """The same on all-gather caps the kernel takes: both groups on the
+    kernel route (its plain version here, ``window_ops``), bit for bit,
+    and every shard row's compact lists are those of its own slots."""
+    m = torch_models.build(port_pgm, "grid4_evid")
+    g, p = _pair(m, "2x2", caps=_headroom_gather(m))
+    assert g.route == p.route == "kernel"
+    run = {"plain": _drive_plain, "annealed": _drive_annealed,
+           "collapse": _drive_collapse_gather}[drive]
+    for x in (g, p):
+        run(x, m)
+    _assert_equal(g, p)
+    nl = g.local_slots
+    want = sweep.sweep_tensors(port_encode.stack_variants(
+        p.encs + [p.encs[0]] * (p.slot_cap - len(p.encs))), "cpu")
+    for vi, row in enumerate(g.kstack):
+        for kst in row.values():
+            assert gibbs_cuda.uses_gather(kst)
+            for key in sweep.COMPACT_KEYS:
+                got, w = kst[key], want[key][vi * nl:(vi + 1) * nl]
+                width = max(got.shape[1], w.shape[1])
+                assert torch.equal(torch.nn.functional.pad(got, (0, width - got.shape[1])),
+                                   torch.nn.functional.pad(w, (0, width - w.shape[1]))), key
 
 
 # ---- (f) the tempered burn-in scales the flat tables ---------------------------
@@ -323,15 +395,17 @@ def test_promedus_headroom_caps_go_all_gather():
         caps = port_encode.compute_caps(m, collapse_headroom=True, slot_hint=128,
                                         headroom_factors=2)
         assert caps.base_mode == mode
-        assert (sweep.route_for(caps) == "ops") == (mode == "gather")
+        assert sweep.kernel_refusal(caps) is None and sweep.route_for(caps) == "kernel"
+        assert (caps.gfac_cap > 0) == (mode == "gather")
         assert sweep.kernel_refusal(port_encode.compute_caps(m, headroom_factors=0)) is None
 
 
 @pytest.mark.parametrize("how", ["mesh", "split_off"])
 def test_adaptive_engine_on_promedus_headroom_caps(tmp_path, how):
     """``-s adaptive`` under a 2x2 mesh and under ``split_group="off"``
-    builds one group on all-gather headroom caps: it runs on the ops
-    route, says so, adapts and collapses."""
+    builds one group on all-gather headroom caps: it runs on the kernel's
+    gather form (here its plain version), says so, adapts and
+    collapses."""
     path, m = _promedus(tmp_path)
     v = m.num_vars
     kw = dict(mesh="2x2") if how == "mesh" else dict(split_group="off")
@@ -341,27 +415,30 @@ def test_adaptive_engine_on_promedus_headroom_caps(tmp_path, how):
                        max_iters=int(m.free_mask.sum()) * 8 * 6 * 2 * 3, max_secs=600.0, seed=7, status_secs=1e-6, anneal_stages=2, **kw)
     lines = []
     res = Engine(cfg, log=lines.append, devices=["cpu"] * 4 if how == "mesh" else None).run()
-    route = [ln for ln in lines if ln.startswith("sweep route: torch ops")]
-    assert len(route) == 1 and "gather bank (gfac_cap=10)" in route[0]
+    route = [ln for ln in lines if ln.startswith("sweep route:")]
+    assert route == ["sweep route: kernel, gather form (gfac_cap=10) on cpu, as its plain "
+                     "version window_ops"]
     assert any("device mesh" in ln for ln in lines) == (how == "mesh")
     assert not any("split group" in ln for ln in lines)
     assert any(ln.startswith("ADAPT: ") for ln in lines)
-    assert res.collapsed and res.variants > 2 and not res.kernel
+    assert res.collapsed and res.variants > 2 and res.kernel
     assert np.isfinite(res.marginals).all()
     np.testing.assert_allclose(res.marginals.sum(axis=1), 1.0, rtol=1e-9)
 
 
 def test_promedus_group_builds_and_advances_at_full_width():
     """The 916-var net's headroom group, plain and under a 2x2 mesh: both
-    build, take the ops route and advance to the same state."""
+    build, take the kernel route with compact gather lists and advance to
+    the same state."""
     m, evidence = torch_models.promedus_like(port_pgm, seed=1)
     m.apply_evidence(evidence)
     g, p = _pair(m, "2x2", cpv=4, cw=2, collapse_headroom=True, max_variants=64)
     assert p.caps.gfac_cap == 10 and p.caps.adj_cap == 0 and p.caps.oa_cap == 1
     for x in (g, p):
-        assert x.route == "ops"
+        assert x.route == "kernel"
         x.add_variants([m, m])
         x.advance()
+    assert gibbs_cuda.uses_gather(p.kstack) and set(sweep.COMPACT_KEYS) <= set(p.kstack)
     assert torch.equal(g.state, p.state) and torch.equal(g.halves, p.halves)
     assert p.total_samples == 2 * 4 * 2 * int(m.free_mask.sum())
 
@@ -381,8 +458,8 @@ def test_engine_reports_the_kernel_route(tmp_path):
 
 def test_resumed_group_takes_the_same_route(tmp_path):
     """A run on all-gather headroom caps, checkpointed after its first
-    collapse and resumed: the resumed group is on the ops route again,
-    holds the snapshot's variants, and goes on."""
+    collapse and resumed: the resumed group is on the kernel's gather
+    form again, holds the snapshot's variants, and goes on."""
     path, m = _promedus(tmp_path)
     v, free = m.num_vars, int(m.free_mask.sum())
     ck = str(tmp_path / "ck.npz")
@@ -392,11 +469,42 @@ def test_resumed_group_takes_the_same_route(tmp_path):
                        max_secs=600.0, seed=7, status_secs=1e-6, anneal_stages=0,
                        split_group="off", checkpoint_path=ck, checkpoint_secs=0.0)
     first = Engine(cfg, log=lambda _m: None).run()
-    assert first.collapsed and not first.kernel
+    assert first.collapsed and first.kernel
     lines = []
     cfg2 = dataclasses.replace(cfg, resume=True, max_iters=first.samples + free * 8 * 6 * 4)
     res = Engine(cfg2, log=lines.append).run()
     assert any(ln.startswith("RESUMED") for ln in lines)
-    assert sum(ln.startswith("sweep route: torch ops") for ln in lines) == 1
-    assert not res.kernel and res.samples > first.samples
+    assert sum(ln.startswith("sweep route: kernel, gather form") for ln in lines) == 1
+    assert res.kernel and res.samples > first.samples
     assert set(first.collapsed) <= set(res.collapsed)
+
+
+def test_ops_route_checkpoint_resumes_on_the_kernel_route(tmp_path):
+    """A group on gather caps that swept by the ops route (as groups on
+    such caps did before the kernel walked the gather bank) saves a
+    checkpoint; it resumes onto the kernel route, with compact lists, and
+    draws what the group that was never saved draws: the kernel order
+    and the hash do not depend on the route."""
+    from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
+
+    m = torch_models.build(port_pgm, "grid4_evid")
+    caps = _headroom_gather(m)
+    groups = []
+    for route in ("ops", "kernel"):
+        g = ChainGroup(m, 32, 6, device="cpu", caps=caps, seed=4)
+        g.route = route
+        g.add_variants([m, collapse_var(m, 4)[0]])
+        g.burn(3)
+        g.advance()
+        groups.append(g)
+    assert "c_lists" not in groups[0].kstack
+    ck = str(tmp_path / "ops.npz")
+    save_checkpoint(ck, groups[0])
+    resumed, _ = load_checkpoint(ck, m, device="cpu",
+                                 make_group=lambda mm, **kw: ChainGroup(mm, caps=caps, **kw))
+    assert resumed.route == "kernel" and gibbs_cuda.uses_gather(resumed.kstack)
+    for g in (resumed, groups[1]):
+        g.advance()
+    assert torch.equal(resumed.state, groups[1].state)
+    assert torch.equal(resumed.halves, groups[1].halves)
+    np.testing.assert_array_equal(resumed.totals, groups[1].totals)

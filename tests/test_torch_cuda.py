@@ -1,7 +1,8 @@
 """The CUDA sweep kernel on the card, against its plain PyTorch version,
 at the plain models' widths, at the wide local tables of collapse
-variants (64 to 1024 rows, scopes up to 11) and on collapse-headroom
-encodings; the adaptive sampler and kill-and-resume on the card; groups
+variants (64 to 1024 rows, scopes up to 11), on collapse-headroom
+encodings and, in its gather form, on encodings with a flat-table gather
+bank (against ``window_ops``); the adaptive sampler and kill-and-resume on the card; groups
 sharded over a virtual mesh of the card (and over two cards where the
 machine has them).
 
@@ -12,6 +13,8 @@ only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ import grample_tpu_torch.pgm.discrete as port_pgm
 import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu_torch.metrics import hellinger
 from grample_tpu_torch.ops import gibbs_cuda, sweep
+from grample_tpu_torch.ops.gibbs_bank import window_ops
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
 from grample_tpu_torch.pgm.exact import exact_marginals
@@ -50,9 +54,10 @@ def _long_chain(v=2000):
 
 
 def _kernel_vs_plain(encs, device, c, count=True):
-    """One window of 3 sweeps (half point 1) through the plain version and
-    through every form of the kernel (the form the wrapper's rule picks,
-    thread per chain, site-parallel), from the same state: at most 0.1 %
+    """One window of 3 sweeps (half point 1) through the plain version
+    (``window_ops`` where the encoding has a gather bank) and through
+    every form of the kernel (the form the wrapper's rule picks, thread
+    per chain, site-parallel), from the same state: at most 0.1 %
     of sites differ after it, tail rows stay, and (counted) counts agree
     wherever the states agree, each half's total is chains x sweeps x live
     rows, and padding rows count nothing."""
@@ -64,7 +69,10 @@ def _kernel_vs_plain(encs, device, c, count=True):
     cards = np.stack([e.cards for e in encs])[np.arange(n)[:, None], kst["pal_oon"].cpu().numpy()]
     init = np.floor(rng.random((n, nvp, c)) * cards[:, :, None])
     state = torch.as_tensor(init.astype(np.int32), device=device)
-    sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
+    if gibbs_cuda.uses_gather(kst):
+        sp, cp = window_ops(kst, state.clone(), -77, 3, 1, count, 512)
+    else:
+        sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
     live = kst["k_kmask"].bool().any(dim=3).reshape(n, nslot)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for form in (None, False, True):  # the rule's pick, thread per chain, site-parallel
@@ -73,6 +81,8 @@ def _kernel_vs_plain(encs, device, c, count=True):
         sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, plan)
         torch.cuda.synchronize()
         assert gibbs_cuda.gibbs_window.launches == before + 1
+        assert (plan or gibbs_cuda.plan_launch(kst, c, count, sms)).gather \
+            == gibbs_cuda.uses_gather(kst)
         assert (sk[:, :nslot] != sp[:, :nslot]).float().mean().item() <= 1e-3, form
         assert torch.equal(sk[:, nslot:], state[:, nslot:])
         if not count:
@@ -364,13 +374,6 @@ def test_sharded_over_two_cards(cuda_device):
 
 # ---- the torch-ops route on the card -------------------------------------------
 
-def _all_gather(caps):
-    import dataclasses
-
-    return dataclasses.replace(caps, base_mode="gather", adj_cap=0, oa_cap=1,
-                               gfac_cap=caps.adj_cap + caps.gfac_cap)
-
-
 @pytest.mark.parametrize("name", ["star10_c0", "promedus8", "rand8_card4"])
 def test_ops_route_matches_kernel_on_card(cuda_device, name):
     """One model encoded dense, through the CUDA kernel, and all-gather,
@@ -393,7 +396,7 @@ def test_ops_route_matches_kernel_on_card(cuda_device, name):
         variants = ([collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
                     if name == "promedus8" else [torch_models.collapsed(port_pgm, name)[1]] * 2)
     dense = [port_encode.encode_model(v, caps) for v in variants]
-    gather = [port_encode.encode_model(v, _all_gather(caps)) for v in variants]
+    gather = [port_encode.encode_model(v, torch_models.all_gather(caps)) for v in variants]
     kd = sweep.sweep_tensors(port_encode.stack_variants(dense), cuda_device)
     kg = sweep.sweep_tensors(port_encode.stack_variants(gather), cuda_device, compact=False)
     assert torch.equal(kd["pal_oon"], kg["pal_oon"])
@@ -414,10 +417,67 @@ def test_ops_route_matches_kernel_on_card(cuda_device, name):
     assert torch.equal(sd, sp) and torch.equal(cd, cp)
 
 
+def _gather_encs(case):
+    """Encodings of a ``torch_models.GATHER_CASES`` case, of the 916-var
+    Promedus-shaped net at the single adaptive group's headroom caps
+    (all-gather), or of a 4x4 grid at card 16 encoded all-gather."""
+    if case == "promedus_head":
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+        m.apply_evidence(evidence)
+        variants = [m, m]
+        caps = port_encode.compute_caps(m, collapse_headroom=True, slot_hint=128,
+                                        headroom_factors=2)
+    elif case == "grid_card16":
+        m = torch_models.grid(port_pgm, 4, seed=3, card=16)
+        variants = [m, m]
+        caps = torch_models.all_gather(port_encode.compute_caps(m, headroom_factors=0))
+    else:
+        variants, caps = torch_models.gather_variants(port_pgm, case)
+    assert caps.gfac_cap > 0 and sweep.kernel_refusal(caps) is None
+    return [port_encode.encode_model(v, caps) for v in variants]
+
+
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("case", [*torch_models.GATHER_CASES, "promedus_head", "grid_card16"])
+def test_gather_form_matches_window_ops_on_card(cuda_device, case, count):
+    """The kernel's gather form, in every form, against ``window_ops`` on
+    the card (``_kernel_vs_plain``), at 4096 chains a variant."""
+    _kernel_vs_plain(_gather_encs(case), cuda_device, 4096, count)
+
+
+def test_gather_form_draws_as_the_dense_kernel(cuda_device):
+    """One model's 8 collapse variants encoded dense and all-gather, both
+    through the kernel from the same state and seed: the two banks hold
+    the same floats, summed in factor order, so at most 0.1 % of sites
+    differ (none expected) and count totals are equal."""
+    m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+    m.apply_evidence(evidence)
+    variants = [collapse_var(m, v)[0] for v in torch_models.widest_collapsible(port_pgm, m, 8)]
+    caps = port_encode.caps_for_variants(variants, slot_hint=8)
+    dense = [port_encode.encode_model(v, caps) for v in variants]
+    kd, kg = (sweep.sweep_tensors(port_encode.stack_variants(encs), cuda_device) for encs in (
+        dense, [port_encode.encode_model(v, torch_models.all_gather(caps)) for v in variants]))
+    assert gibbs_cuda.uses_gather(kg) and not gibbs_cuda.uses_gather(kd)
+    n, c, nslot = len(variants), 4096, caps.num_slots
+    oon = kd["pal_oon"].cpu().numpy()
+    cards = np.stack([e.cards for e in dense])[np.arange(n)[:, None], oon]
+    fixed = np.stack([e.fixed for e in dense])[np.arange(n)[:, None], oon]
+    rng = np.random.default_rng(6)
+    init = np.floor(rng.random((n, caps.num_rows, c)) * cards[:, :, None])
+    init = np.where(fixed[:, :, None] >= 0, fixed[:, :, None], init)
+    state = torch.as_tensor(init.astype(np.int32), device=cuda_device)
+    sd, cd = gibbs_cuda.gibbs_window(kd, state.clone(), 5, 2, 1, True, 512)
+    sg, cg = gibbs_cuda.gibbs_window(kg, state.clone(), 5, 2, 1, True, 512)
+    torch.cuda.synchronize()
+    assert (sd[:, :nslot] != sg[:, :nslot]).float().mean().item() <= 1e-3
+    assert cd.sum().item() == cg.sum().item()
+
+
 def test_eligible_caps_on_card_never_take_the_ops_route(cuda_device, monkeypatch):
     """A group whose caps pass the kernel's gate launches the kernel and
-    nothing else on a CUDA tensor; a group on gather caps launches no
-    kernel."""
+    nothing else on a CUDA tensor, on dense and on gather caps (the
+    kernel's gather form); a group on caps the gate refuses (card bound
+    17) launches no kernel."""
     from grample_tpu_torch.ops import gibbs_bank
 
     m = torch_models.build(port_pgm, "grid4_evid")
@@ -431,13 +491,26 @@ def test_eligible_caps_on_card_never_take_the_ops_route(cuda_device, monkeypatch
     g.advance()
     assert gibbs_bank.window_ops.launches == ops_before
     assert gibbs_cuda.gibbs_window.launches == kernel_before + 2
-    caps = _all_gather(port_encode.compute_caps(m, headroom_factors=0))
-    h = ChainGroup(m, 256, 8, cuda_device, seed=1, caps=caps)
+    caps = torch_models.all_gather(port_encode.compute_caps(m, headroom_factors=0))
+    monkeypatch.setattr(sweep, "window_ops",
+                        lambda *a, **k: pytest.fail("the ops route ran on kernel caps"))
+    gk = ChainGroup(m, 256, 8, cuda_device, seed=1, caps=caps)
+    assert gk.route == "kernel"
+    gk.add_variants([m, m])
+    gk.burn(2)
+    gk.advance()
+    assert gibbs_cuda.gibbs_window.launches == kernel_before + 4
+    assert gibbs_cuda.gibbs_window.launches_by_form.get(
+        "thread per chain, counted, gather bank", 0) \
+        + gibbs_cuda.gibbs_window.launches_by_form.get("site-parallel, counted, gather bank", 0) > 0
+    assert (gk.state != g.state).float().mean().item() <= 1e-3
+    monkeypatch.undo()
+    h = ChainGroup(m, 256, 8, cuda_device, seed=1, caps=dataclasses.replace(caps, max_card=17))
     assert h.route == "ops"
     h.add_variants([m, m])
     h.burn(2)
     h.advance()
-    assert gibbs_cuda.gibbs_window.launches == kernel_before + 2
+    assert gibbs_cuda.gibbs_window.launches == kernel_before + 4
     assert gibbs_bank.window_ops.launches == ops_before + 2
     # the same seeds and hash cells on both routes: the chains agree but
     # for draws on a CDF boundary

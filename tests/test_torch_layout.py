@@ -3,9 +3,11 @@ kernel-order tensors they are derived from.
 
 ``walk_window`` is a slow walker of the compact lists that indexes them
 exactly as the CUDA kernel does (cursors over sites, incidences and scope
-entries; dense state rows; ragged tables) and shares only the draw's
-arithmetic with the plain version.  It must equal ``window_plain`` on the
-dense tensors bit for bit: that proves the kernel's indexing on the CPU.
+entries of both banks; dense state rows; ragged tables; the cut flat
+table) and shares only the draw's arithmetic with the plain versions.  It
+must equal ``window_plain`` on dense encodings and ``window_ops`` on
+encodings with a gather bank, bit for bit: that proves the kernel's
+indexing on the CPU.
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 import grample_tpu_torch.pgm.discrete as port_pgm
 import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu_torch.ops import gibbs_cuda, layout, sweep
+from grample_tpu_torch.ops.gibbs_bank import window_ops
 from grample_tpu_torch.ops.gibbs_torch import (
     _hash, draw, sweep_counter, window_cell, window_plain)
 from grample_tpu_torch.sampler.chains import ChainGroup
@@ -27,9 +30,12 @@ HEADROOM = ("grid4", "rand8", "star8_aux")
 
 def _encs(name):
     """Encodings of case ``name``: a model of ``torch_models.MODELS`` at
-    its plain caps stacked twice, a wide collapse variant, or a
-    collapse-headroom case."""
-    if name in HEADROOM:
+    its plain caps stacked twice, a wide collapse variant, a
+    collapse-headroom case, or a case with a gather bank
+    (``torch_models.GATHER_CASES``)."""
+    if name in torch_models.GATHER_CASES:
+        variants, caps = torch_models.gather_variants(port_pgm, name)
+    elif name in HEADROOM:
         variants, caps, _ = torch_models.headroom_variants(port_pgm, name)
     elif name in torch_models.WIDE:
         variants = [torch_models.collapsed(port_pgm, name)[1]] * 2
@@ -66,6 +72,68 @@ def _sections(blob):
     return color_end, sites, incs, h[off[3]:off[3] + n_scope]
 
 
+def _gather_sections(blob):
+    """(gsites [L], gincs [Ig, 4], gscope [Qg, 2]) of one blob."""
+    h = blob.astype(np.int64)
+    n_sites, n_gincs, n_gscope = (int(h[i]) for i in (layout.H_SITES, layout.H_GINCS,
+                                                      layout.H_GSCOPE))
+    gs, gi, gq = (int(h[i]) for i in (layout.H_OFF_GSITES, layout.H_OFF_GINCS,
+                                      layout.H_OFF_GSCOPE))
+    gsites = h[gs:gs + n_sites] if gi > gs else h[gs:gs]  # empty without a gather bank
+    return gsites, h[gi:gi + 4 * n_gincs].reshape(-1, 4), h[gq:gq + 2 * n_gscope].reshape(-1, 2)
+
+
+class _Walker:
+    """Variant ``ni``'s compact lists and a chain state [R, C] over its
+    kept rows, walked site by site with the kernel's cursors."""
+
+    def __init__(self, kst, ni, state_ni):
+        blob = kst["c_lists"][ni].numpy()
+        self.K = kst["k_kmask"].shape[3]
+        self.color_end, self.sites, self.incs, self.scope = _sections(blob)
+        self.gsites, self.gincs, self.gscope = _gather_sections(blob)
+        self.rows = kst["c_rows"][ni].numpy()
+        used, gtab0 = int(blob[layout.H_TABLE_FLOATS]), int(blob[layout.H_GTAB0])
+        self.flat = kst["c_tables"][ni, :used]
+        self.tabs = self.flat[:gtab0].reshape(-1, self.K)
+        self.n_sites = int(blob[layout.H_SITES])
+        n_rows = int(blob[layout.H_ROWS])
+        self.sm = state_ni[torch.as_tensor(self.rows[:n_rows].astype(np.int64))].clone()
+        self.inc = self.q = self.ginc = self.gq = 0
+
+    def logits(self, site):
+        """[C, K] logits of live site ``site``: its dense incidences
+        summed in order, then its gather incidences summed into a second
+        accumulator (in-card outcomes only) and added; the cursors move
+        past the site's entries."""
+        C, K = self.sm.shape[1], self.K
+        lg = torch.zeros((C, K), dtype=torch.float32)
+        while self.inc < self.sites[site, 1]:
+            trow = torch.full((C,), int(self.incs[self.inc, 0]), dtype=torch.int64)
+            while self.q < self.incs[self.inc, 1]:
+                e = int(self.scope[self.q])
+                trow += self.sm[e & 0xFFFF].long() * (e >> 16)
+                self.q += 1
+            lg = lg + self.tabs[trow]
+            self.inc += 1
+        if self.gsites.size:
+            km = int(self.sites[site, 0]) >> 16
+            ga = torch.zeros((C, K), dtype=torch.float32)
+            while self.ginc < self.gsites[site]:
+                off, self_stride, end, _ = (int(x) for x in self.gincs[self.ginc])
+                base = torch.zeros(C, dtype=torch.int32)
+                while self.gq < end:
+                    row, stride = (int(x) for x in self.gscope[self.gq])
+                    base += self.sm[row] * stride  # int32, as the kernel
+                    self.gq += 1
+                for kk in range(K):
+                    if (km >> kk) & 1:
+                        ga[:, kk] = ga[:, kk] + self.flat[(off + base + kk * self_stride).long()]
+                self.ginc += 1
+            lg = lg + ga
+        return lg
+
+
 def walk_window(kst, state, seed, num_sweeps, half_point, count, cb):
     """One window from the compact lists, as the CUDA kernel walks them."""
     n, nc, G, K = kst["k_kmask"].shape
@@ -74,39 +142,40 @@ def walk_window(kst, state, seed, num_sweeps, half_point, count, cb):
     chain = torch.arange(C, dtype=torch.int64)
     lanes = chain[None, :] % cb
     for ni in range(n):
-        color_end, sites, incs, scope = _sections(kst["c_lists"][ni].numpy())
-        rows = kst["c_rows"][ni].numpy()
-        used = int(kst["c_lists"][ni, layout.H_TABLE_FLOATS])
-        tabs = kst["c_tables"][ni, :used].reshape(-1, K)
-        n_rows = int(kst["c_lists"][ni, layout.H_ROWS])
-        sm = state[ni][torch.as_tensor(rows[:n_rows].astype(np.int64))].clone()  # [R, C]
+        w = _Walker(kst, ni, state[ni])
         cell = window_cell(seed, ni, chain // cb)
         for si in range(num_sweeps):
             hsel = int(si >= half_point)
-            site = inc = q = 0
+            w.inc = w.q = w.ginc = w.gq = 0
+            site = 0
             for ci in range(nc):
                 counter = sweep_counter(cell, si, nc, ci)[None, :]
-                while site < color_end[ci]:
-                    gi, km = int(sites[site, 0]) & 0xFFFF, int(sites[site, 0]) >> 16
-                    lg = torch.zeros((C, K), dtype=torch.float32)
-                    while inc < sites[site, 1]:
-                        trow = torch.full((C,), int(incs[inc, 0]), dtype=torch.int64)
-                        while q < incs[inc, 1]:
-                            e = int(scope[q])
-                            trow += sm[e & 0xFFFF].long() * (e >> 16)
-                            q += 1
-                        lg = lg + tabs[trow]
-                        inc += 1
+                while site < w.color_end[ci]:
+                    gi, km = int(w.sites[site, 0]) & 0xFFFF, int(w.sites[site, 0]) >> 16
+                    lg = w.logits(site)
                     mk = torch.tensor([[float((km >> kk) & 1) for kk in range(K)]])
                     unif = _hash(torch.tensor([[gi]]), lanes, counter)
                     newv = draw(lg[None], mk, unif)[0]
-                    sm[site] = newv
+                    w.sm[site] = newv
                     if count:
                         counts[ni, hsel, newv.long(), ci * G + gi, chain] += 1
                     site += 1
-        n_sites = int(kst["c_lists"][ni, layout.H_SITES])
-        state[ni][torch.as_tensor(rows[:n_sites].astype(np.int64))] = sm[:n_sites]
+        state[ni][torch.as_tensor(w.rows[:w.n_sites].astype(np.int64))] = w.sm[:w.n_sites]
     return state, counts
+
+
+def walk_logits(kst, state, ni, ci):
+    """[G, C, K] logits of colour ``ci`` of variant ``ni`` at kernel-order
+    state ``state`` [N, NVp, C] by the compact lists (in-card outcomes of
+    live rows; 0 elsewhere)."""
+    G, K = kst["k_kmask"].shape[2:]
+    w = _Walker(kst, ni, state[ni])
+    out = torch.zeros((G, state.shape[2], K), dtype=torch.float32)
+    for site in range(int(w.color_end[ci])):
+        lg = w.logits(site)
+        if site >= (w.color_end[ci - 1] if ci else 0):
+            out[int(w.sites[site, 0]) & 0xFFFF] = lg
+    return out
 
 
 CASES = sorted(torch_models.MODELS) + sorted(torch_models.WIDE) + list(HEADROOM)
@@ -130,6 +199,139 @@ def test_walker_matches_plain(name, count, cb):
     live = kst["k_kmask"].bool().any(dim=3).reshape(len(sw), -1)  # [N, NSLOT]
     per_slot = cp.sum(dim=(1, 2))  # [N, NSLOT, C]
     assert torch.equal(per_slot, (3 * live.to(torch.int32))[:, :, None].expand_as(per_slot))
+
+
+@pytest.mark.parametrize("cb", [1, 8])
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("name", torch_models.GATHER_CASES)
+def test_walker_matches_window_ops(name, count, cb):
+    """On encodings with a gather bank the walker equals ``window_ops``
+    (the gather form's plain version): state on every row and counts on
+    every slot, bit for bit, after a 3-sweep window with the half point
+    at 1."""
+    kst, state = _inputs(name, chains=24)
+    assert gibbs_cuda.uses_gather(kst)
+    assert int(layout.compact_counts(kst["c_lists"].numpy())[:, 5].min()) > 0
+    sw, cw = walk_window(kst, state.clone(), -77, 3, 1, count, cb)
+    so, co = window_ops(kst, state.clone(), -77, 3, 1, count, cb)
+    assert torch.equal(sw, so)
+    if not count:
+        assert cw is None and co is None
+        return
+    assert torch.equal(cw, co)
+    live = kst["k_kmask"].bool().any(dim=3).reshape(len(sw), -1)  # [N, NSLOT]
+    per_slot = co.sum(dim=(1, 2))  # [N, NSLOT, C]
+    assert torch.equal(per_slot, (3 * live.to(torch.int32))[:, :, None].expand_as(per_slot))
+
+
+def _gather_live(kst, i):
+    """Live (gather incidences [NC, G, Fg], gather scope entries
+    [NC, G, Fg, S]) of variant ``i`` by the rule of ``ops.layout``."""
+    site = kst["k_kmask"][i].bool().any(dim=2)
+    inc = kst["gb_mask"][i].bool() & site[..., None]
+    return inc, (kst["gb_scope_strides"][i] > 0) & inc[..., None]
+
+
+@pytest.mark.parametrize("name", torch_models.GATHER_CASES)
+def test_gather_lists_follow_the_rule(name):
+    """The gather sections list every live gather incidence and scope
+    entry in order, with its self stride, stride and kernel row, and
+    each incidence's stretch of the cut flat table equals the flat
+    table's from its offset, as far as its outcomes and strides reach."""
+    kst, _ = _inputs(name, chains=1)
+    got = layout.compact_counts(kst["c_lists"].numpy())
+    row_cards = np.stack([e.cards for e in _encs(name)])[
+        np.arange(got.shape[0])[:, None], kst["pal_oon"].numpy()]
+    for i in range(got.shape[0]):
+        inc, sc = _gather_live(kst, i)
+        assert (got[i, 5], got[i, 6]) == (int(inc.sum()), int(sc.sum()))
+        blob = kst["c_lists"][i].numpy()
+        gsites, gincs, gscope = _gather_sections(blob)
+        rows = kst["c_rows"][i].numpy()
+        np.testing.assert_array_equal(rows[gscope[:, 0]], kst["gb_scope_vars"][i][sc].numpy())
+        np.testing.assert_array_equal(gscope[:, 1], kst["gb_scope_strides"][i][sc].numpy())
+        np.testing.assert_array_equal(gincs[:, 1], kst["gb_self_stride"][i][inc].numpy())
+        np.testing.assert_array_equal(np.diff(gsites, prepend=0),
+                                      inc[kst["k_kmask"][i].bool().any(dim=2)].sum(dim=1).numpy())
+        flat, cut = kst["tables"][i].numpy(), kst["c_tables"][i].numpy()
+        assert (gincs[:, 0] >= blob[layout.H_GTAB0]).all()
+        card = kst["k_kmask"][i].sum(dim=2)[..., None].expand_as(inc)[inc].numpy()
+        scope_rows, strides = kst["gb_scope_vars"][i][inc].numpy(), kst["gb_scope_strides"][i][inc].numpy()
+        reach = (1 + ((row_cards[i][scope_rows] - 1) * strides).sum(axis=1)
+                 + (card - 1) * gincs[:, 1])
+        for j, off in enumerate(kst["gb_offset"][i][inc].numpy()):
+            np.testing.assert_array_equal(cut[gincs[j, 0]:gincs[j, 0] + reach[j]],
+                                          flat[off:off + reach[j]])
+
+
+def test_gather_counts_of_the_smoke_shape():
+    """The Promedus-shaped net at the single adaptive group's headroom
+    caps (all-gather: the 4h encoding of the smoke run): its live gather
+    work, and the cut flat table against the whole."""
+    m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+    m.apply_evidence(evidence)
+    caps = port_encode.compute_caps(m, collapse_headroom=True, slot_hint=128, headroom_factors=2)
+    assert caps.base_mode == "gather" and sweep.kernel_refusal(caps) is None
+    kst = layout.kernel_stack(port_encode.stack_variants([port_encode.encode_model(m, caps)]))
+    got = layout.compact_counts(kst["c_lists"])[0]
+    assert tuple(got[[0, 2, 3, 5, 6]]) == (870, 0, 0, 1742, 2353)
+    assert got[4] < caps.table_cap
+
+
+@pytest.mark.parametrize("name", ["grid4_gather", "wide12_mixed"])
+def test_gather_lists_in_slot_writes_and_scaling(name):
+    """A group on gather caps writes new variants' compact lists slot-wise
+    equal to a restack of all its encodings, and scaling its tables
+    (dense, compact and flat) equals compacting the scaled tables."""
+    variants, caps = torch_models.gather_variants(port_pgm, name)
+    g = ChainGroup(variants[0], chains_per_variant=8, converge_window=4, device="cpu", seed=1,
+                   caps=caps)
+    assert g.route == "kernel"
+    g.reserve(4)
+    g.add_variants(variants[:2])
+    g.add_variants(variants[2:] or variants[:1])
+    assert gibbs_cuda.uses_gather(g.kstack) and set(layout.COMPACT_KEYS) <= set(g.kstack)
+    want = sweep.sweep_tensors(port_encode.stack_variants(g.encs), "cpu")
+    assert set(want) == set(g.kstack)
+    n = len(g.encs)
+    for key, w in want.items():
+        got = g.kstack[key][:n]
+        if key in layout.COMPACT_KEYS:
+            assert got.shape[1] >= w.shape[1] and not got[:, w.shape[1]:].any()
+            got = got[:, :w.shape[1]]
+        assert torch.equal(got, w), key
+    scaled = sweep.scale_tables(want, 0.25)
+    dense = {k: scaled[k].numpy() for k in (*sweep.KERNEL_KEYS, "pal_oon", *layout.GATHER_KEYS,
+                                            "gb_scope_vars", "tables")}
+    again = layout.compact_stack(dense, np.stack([e.cards for e in g.encs]))
+    for key in layout.COMPACT_KEYS:
+        np.testing.assert_array_equal(scaled[key].numpy(), again[key])
+    assert not torch.equal(scaled["c_tables"], want["c_tables"])
+    g.burn_annealed(4, stages=2)
+    assert g.advance(4) == 4 * 8 * sum(int(v.free_mask.sum()) for v in g.variants)
+
+
+def test_caps_growth_into_the_gather_bank_rebuilds_the_lists():
+    """A group on dense caps that a variant grows into the gather bank (a
+    12-var factor beyond the dense threshold of 32 rows) stays on the
+    kernel route and restacks with compact gather lists equal to those
+    of its encodings."""
+    m = torch_models.wide_factor(port_pgm, 12, seed=2)
+    unaries = port_pgm.DiscreteModel(type="MARKOV", cards=[2] * 12, factors=m.factors[1:])
+    caps = port_encode.compute_caps(unaries, headroom_factors=0, oa_dense_cap=32)
+    g = ChainGroup(unaries, chains_per_variant=8, converge_window=4, device="cpu", seed=1,
+                   caps=caps)
+    g.add_variants([unaries])
+    assert g.route == "kernel" and not gibbs_cuda.uses_gather(g.kstack)
+    g.add_variants([m])
+    assert g.caps.gfac_cap > 0 and g.route == "kernel" and gibbs_cuda.uses_gather(g.kstack)
+    want = sweep.sweep_tensors(port_encode.stack_variants(g.encs), "cpu")
+    for key in layout.COMPACT_KEYS:
+        got = g.kstack[key][:, :want[key].shape[1]]
+        assert torch.equal(got, want[key]), key
+    assert layout.compact_counts(g.kstack["c_lists"].numpy())[1, 5] == 12
+    g.burn(2)
+    assert g.advance(2) == 2 * 8 * 2 * 12
 
 
 def _dense_live(kst, i):
@@ -323,6 +525,23 @@ def test_plan_launch_rules(case, want):
                                     gibbs_cuda.state_bytes(rows, 2, plan.threads))
     # either form can be asked for by name
     assert gibbs_cuda.plan_launch(kst, c, True, 132, sites=not want[0]).sites != want[0]
+
+
+@pytest.mark.parametrize("k,sites,want", [
+    (2, False, 1024), (16, False, 512), (8, False, 1024), (16, True, 512),
+])
+def test_plan_launch_gather_form(k, sites, want):
+    """An encoding with a gather bank launches the gather form, whose
+    blocks stay within its launch bound: 512 threads at card bound 16,
+    where two 16-logit accumulators share a thread's registers."""
+    kst = _shapes(2, 928, k, 8192, 8192)
+    kst["gb_offset"] = torch.zeros((2, 2, 4, 3), dtype=torch.int32)
+    plan = gibbs_cuda.plan_launch(kst, 131072 if not sites else 256, True, 132, sites)
+    assert plan.gather and plan.sites == sites and plan.threads <= want
+    assert gibbs_cuda.max_threads(k, True) == want and gibbs_cuda.max_threads(k, False) == 1024
+    assert gibbs_cuda.form_name(plan).endswith(", gather bank")
+    kst["gb_offset"] = kst["gb_offset"][..., :0]
+    assert not gibbs_cuda.plan_launch(kst, 131072, True, 132).gather
 
 
 def test_plan_launch_refuses_what_does_not_fit():

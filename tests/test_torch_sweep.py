@@ -166,11 +166,15 @@ def _caps_of(name, **kw):
 @pytest.mark.parametrize("case", ["gather_bank", "card17", "rows", "oa"])
 def test_gate_refuses(case):
     """The kernel's gate names what the kernel does not take; the sweep
-    takes it all the same, by the torch-ops route."""
+    takes it all the same, by the torch-ops route.  The gather bank itself
+    passes; what it refuses there is compact tables beyond the kernel's
+    int32 offsets."""
     caps = _caps_of("rand6")
     assert sweep.kernel_refusal(caps) is None and sweep.route_for(caps) == "kernel"
+    assert sweep.kernel_refusal(dataclasses.replace(caps, gfac_cap=1)) is None
     bad, reason = {
-        "gather_bank": (dataclasses.replace(caps, gfac_cap=1), "gather bank"),
+        "gather_bank": (dataclasses.replace(caps, gfac_cap=1, table_cap=2 ** 31 - 1),
+                        "int32 table offsets"),
         "card17": (dataclasses.replace(caps, max_card=17), "max card"),
         "rows": (dataclasses.replace(caps, tail_cap=80000), "shared memory"),
         "oa": (dataclasses.replace(caps, oa_cap=sweep.OA_MAX + 1), "local tables"),
@@ -200,9 +204,10 @@ def test_gate_admits_wide_tables():
 
 def test_gate_refuses_gather_model():
     """A real model whose encoding needs the gather bank is not refused by
-    the chain runtime: the kernel's gate names the bank, the group takes
-    the torch-ops route, and its marginals match exact.  32768 counted
-    samples per var: 5 sigma(H) = 5 / sqrt(8 n) = 0.0098."""
+    the chain runtime: the kernel's gate takes the bank, the group takes
+    the kernel route with compact gather lists (on the CPU the gather
+    form's plain version, ``window_ops``), and its marginals match exact.
+    32768 counted samples per var: 5 sigma(H) = 5 / sqrt(8 n) = 0.0098."""
     from grample_tpu_torch.metrics import hellinger
     from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.chains import ChainGroup
@@ -215,10 +220,11 @@ def test_gate_refuses_gather_model():
     caps = port_encode.compute_caps(m, headroom_factors=0, oa_dense_cap=32,
                                     slot_hint=1 << 40)
     assert caps.gfac_cap > 0
-    assert "gather bank" in sweep.kernel_refusal(caps)
+    assert sweep.kernel_refusal(caps) is None
     g = ChainGroup(m, 256, 64, device="cpu", caps=caps, seed=3)
-    assert g.route == "ops"
+    assert g.route == "kernel"
     g.add_variants([m, m])
+    assert set(sweep.COMPACT_KEYS) <= set(g.kstack)
     g.burn(16)
     before = dict(gibbs_bank.window_ops.launches_by_form)
     g.advance()
@@ -260,6 +266,36 @@ def test_kernel_route_on_cuda_never_takes_ops_or_plain(monkeypatch):
         sweep.window(kst, state, 1, 2, 1, True, 8, route="kernel")
     with pytest.raises(ValueError, match="unknown sweep route"):
         sweep.window(kst, state, 1, 2, 1, True, 8, route="auto")
+
+
+@pytest.mark.parametrize("bank", ["dense", "gather"])
+def test_kernel_route_takes_the_plain_version_of_its_form(monkeypatch, bank):
+    """On the CPU the kernel route runs the plain version of the form the
+    encoding needs: ``window_plain`` for the dense bank alone,
+    ``window_ops`` with a gather bank; on a CUDA tensor either encoding
+    launches the kernel wrapper and nothing else."""
+    from tests.torch_models import all_gather
+
+    m = torch_models.build(port_pgm, "grid3")
+    caps = port_encode.compute_caps(m, headroom_factors=0)
+    caps = all_gather(caps) if bank == "gather" else caps
+    assert sweep.route_for(caps) == "kernel"
+    kst = sweep.sweep_tensors(port_encode.stack_variants(
+        [port_encode.encode_model(m, caps)]), "cpu")
+    assert gibbs_cuda.uses_gather(kst) == (bank == "gather")
+    ran = []
+    for name in ("window_ops", "window_plain"):
+        monkeypatch.setattr(sweep, name, lambda *a, name=name: ran.append(name) or name)
+    monkeypatch.setattr(gibbs_cuda, "gibbs_window", lambda *a: ran.append("kernel") or "kernel")
+    state = torch.zeros((1, caps.num_rows, 8), dtype=torch.int32)
+    want = "window_ops" if bank == "gather" else "window_plain"
+    assert sweep.window(kst, state, 1, 2, 1, True, 8, route="kernel") == want
+
+    class OnCard:
+        is_cuda = True
+
+    assert sweep.window(kst, OnCard(), 1, 2, 1, True, 8, route="kernel") == "kernel"
+    assert ran == [want, "kernel"]
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

@@ -9,6 +9,7 @@ Bayes net and ``grid10_variants`` the 10x10 grid that ``chip_smoke.py``
 also runs.
 """
 
+import dataclasses
 import importlib
 
 import numpy as np
@@ -219,3 +220,34 @@ def headroom_variants(pgm, case):
         return collapsed, split.aux_caps(m), m
     caps = encode.compute_caps(m, collapse_headroom=True, slot_hint=128, headroom_factors=2)
     return [m, m] + collapsed, caps, m
+
+
+def all_gather(caps):
+    """``caps`` with every incidence in the flat-table gather bank (as
+    ``tests/test_gibbs.py:219-224`` builds the mode)."""
+    return dataclasses.replace(caps, base_mode="gather", adj_cap=0, oa_cap=1,
+                               gfac_cap=caps.adj_cap + caps.gfac_cap)
+
+
+#: encodings with a gather bank: the all-gather forms of the headroom
+#: cases, the smallest Promedus-shaped net whose headroom caps go
+#: all-gather, and the mixed encoding of the 12-var wide factor
+GATHER_CASES = ("grid4_gather", "rand8_gather", "star8_aux_gather", "promedus560",
+                "wide12_mixed")
+
+
+def gather_variants(pgm, case):
+    """(variants, caps) of a ``GATHER_CASES`` case, built with ``pgm``'s
+    own package."""
+    package = pgm.__name__.rsplit(".", 2)[0]
+    encode = importlib.import_module(package + ".pgm.encode")
+    if case.endswith("_gather"):
+        variants, caps, _ = headroom_variants(pgm, case[:-len("_gather")])
+        return variants, all_gather(caps)
+    if case == "promedus560":
+        m, evidence = promedus_like(pgm, seed=1, v=560)
+        m.apply_evidence(evidence)
+        return [m, m], encode.compute_caps(m, collapse_headroom=True, slot_hint=128,
+                                           headroom_factors=2)
+    m = wide_factor(pgm, 12, seed=2)
+    return [m, m], encode.compute_caps(m, headroom_factors=0)
