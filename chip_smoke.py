@@ -28,8 +28,18 @@ non-zero:
      (a) the 10x10 grid at the single adaptive group's caps (headroom for
      128 slots, two spare factor slots per var), 2 plain slots + 2
      collapse variants, 4 x 32768 chains; (b) the Promedus-shaped net at
-     the split group's ``aux_caps`` (local tables of 256 rows, 4200 padded
-     state rows), 8 collapse variants picked by ``SEED``, 8 x 256 chains;
+     the split group's narrow-tier ``aux_caps`` (local tables of 256 rows,
+     4200 padded state rows), 8 collapse variants picked by ``SEED``, 8 x
+     256 chains;
+  3f. the split group's wide aux tier: the Promedus-shaped net's pooled
+     caps (``sampler.split.wide_aux_spec``: the union caps of every
+     collapse candidate within 8 outcomes), computed from a cold disk
+     cache and read back from a warm one, each timed on the host; 8
+     collapse variants of that pool picked by ``SEED`` x ``POOLED_CHAINS``
+     chains at those caps, every kernel form against the plain version
+     (phase 3's rules), then an 8-sweep counted window both ways from one
+     state and seed, the free sites that differ counted (within 3's
+     bound) and the count totals held exact;
   3d. the kernel under a device mesh: the 10x10 grid, 2 variants x 131072
      chains, a ``ShardedChainGroup`` on a 2x2 virtual mesh of the one card
      (every shard on ``cuda:0``, launched one after the other) beside a
@@ -71,11 +81,13 @@ non-zero:
      (no split group in the log), at least 2 adapt steps and 2 collapsed
      vars, the same Hellinger bound, the launch counter grown;
   4d. the same with ``--split-group on``: the split group in the log and
-     aux seconds above 0, the same bounds;
+     aux seconds above 0, the same bounds; its aux group on the wide tier
+     (131072 chains per collapse variant, candidate bound 8);
   4e. kill and resume on the card: a group on the 10x10 grid (2 x 131072
      chains) equals, bit for bit, itself saved, loaded and advanced; and
      the run of 4d with ``--checkpoint``, stopped by its budget, then
-     ``--resume``d: it continues the sample count and the RB weights;
+     ``--resume``d: it continues the sample count and the RB weights, its
+     snapshot reloads on the wide tier (the spec's caps, full width);
   4f. ``-s adaptive`` through the engine under a 2x2 virtual mesh of the
      card (``Engine(cfg, devices=[card] * 4)``) on the 4x4 grid of phase 4:
      the ``device mesh:`` line and an ``ADAPT:`` line in the log, the same
@@ -101,6 +113,12 @@ non-zero:
      mixed encoding: the wide factor in the gather bank, the unaries
      dense; the kernel's gather form) against exact marginals, the bound
      of phase 4, kernel launches and no torch-ops window;
+  4k. the narrow aux tier on the card: ``sample -s adaptive -c 2
+     --vchains 131072 -a 2 --split-group on`` on a 2x2 grid at card 9,
+     whose candidates all have 9 outcomes or more (no wide spec): the
+     ``aux group: narrow tier`` line, at least one adapt step and
+     collapsed var, kernel launches, the bound of phase 4 against exact
+     marginals;
   4j. ``sample --distributed`` as two rank processes on the one card
      (torchrun's variables: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
      127.0.0.1, a free ``MASTER_PORT``; both see ``cuda:0``; each under a
@@ -132,17 +150,22 @@ non-zero:
      sampling, with its counted site-samples/s and peak device memory;
   5b. the adaptive engine on the Promedus-shaped net (the reference's
      bench shape): ``-s adaptive -c 2 --vchains 8192 -a 4``, burn-in
-     50·V, window 100·V, 30 s; the gate must pick the split group.  Its
+     50·V, window 100·V, 30 s; the gate must pick the split group, and
+     its aux group the wide tier (8192 chains per collapse variant,
+     candidate bound 8; its spec read from the cache 3f filled).  Its
      adapt steps, collapsed vars, counted site-samples/s, aux share of
      the sampling clock, aux sweeps per tick, host seconds per adapt
-     step, set-up seconds and peak device memory, beside ``-s simple -c 2
-     --vchains 8192`` at the same budget;
+     step, the spec's host seconds cold and warm (3f), set-up seconds and
+     peak device memory, beside ``-s simple -c 2 --vchains 8192`` at the
+     same budget; the 3f window timed with its launch and bound;
   6. a JSON line describing each kernel form and shape (the gather form's
      rows replace ``gibbs_xla.py:129-141``), then, last,
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository beside it; without either it
-exits non-zero before printing any result.
+exits non-zero before printing any result.  ``HOME`` is pointed at a
+temporary directory for the run, so the wide aux spec's disk cache
+(``~/.cache/grample_tpu_torch``) starts cold and is removed at the end.
 """
 
 from __future__ import annotations
@@ -180,6 +203,9 @@ WIDE_PAIR_SWEEPS = 8
 WIDE_FULL_SWEEPS = 32
 #: chains per variant of the headroom-encoding comparison on the grid
 HEADROOM_CHAINS = 32768
+#: chains per collapse variant at the wide aux tier's pooled caps (3f):
+#: 5b's full width, ``--vchains 8192``
+POOLED_CHAINS = 8192
 #: chains per collapse variant of the collapsed CLI run (8 x 32768)
 COLLAPSED_CHAINS = 32768
 #: 5 sigma of the max Hellinger error for >= 262144 independent draws per
@@ -200,6 +226,8 @@ HEAD_SECS, HEAD_CHAINS = 20, 8192
 #: effective draws per var: 5 sigma about 0.006); a wrong table lookup
 #: shows as 0.1 and more
 HEAD_HELL_BOUND = 0.02
+#: sampling-clock budget (s) of the narrow-tier run 4k
+NARROW_SECS = 10
 #: sampling-clock budgets (s) of phase 4j: the adaptive run over two ranks,
 #: the same with a checkpoint, and what the one-process run that resumes
 #: it adds to the snapshot's clock
@@ -663,12 +691,20 @@ def main() -> int:
     from grample_tpu_torch.pgm.exact import exact_marginals
     from grample_tpu_torch.sampler.chains import ChainGroup, window_seed
     from grample_tpu_torch.sampler.checkpoint import load_checkpoint, read_meta, save_checkpoint
-    from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
+    from grample_tpu_torch.sampler.collapse import (
+        collapse_var,
+        is_collapsible,
+        pick_random_collapsible,
+    )
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
-    from grample_tpu_torch.sampler.split import AUX_CHAINS
+    from grample_tpu_torch.sampler.split import AUX_CHAINS, PAL_AUX_OA_LIM, wide_aux_spec
     from grample_tpu_torch.uai import read_mar_file
     from tests import torch_models
 
+    # the wide aux spec's disk cache lives under HOME: this run's own
+    # directory, removed when the run ends
+    home = tempfile.TemporaryDirectory()
+    os.environ["HOME"] = home.name
     dev = torch.device("cuda:0")
     path_launches = {}  # phase -> kernel launches by form on that path
     ops_windows = {}  # phase -> windows of the torch-ops route, by form
@@ -796,6 +832,51 @@ def main() -> int:
         torch, akst, astate0, afree, an_free, acaps.num_slots, AUX_CHAINS,
         hash_block(AUX_CHAINS),
         f"{WIDE_SLOTS} aux collapse variants x {AUX_CHAINS} chains").values())
+
+    # ---- 3f. the kernel at the wide aux tier's pooled caps -------------------
+    t0 = time.perf_counter()
+    spec = wide_aux_spec(promedus, dev)
+    spec_cold_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(wide_aux_spec(promedus, dev) == spec, "3f: the cached spec differs from the computed one")
+    spec_warm_secs = time.perf_counter() - t0
+    check(spec is not None and spec.gfac_cap == 0 and spec.oa_cap <= PAL_AUX_OA_LIM
+          and kernel_refusal(spec) is None, f"3f: no wide spec the kernel takes: {spec}")
+    blankets = promedus.blankets()
+    pool = sum(is_collapsible(promedus, u, blankets[u], oa_cap=PAL_AUX_OA_LIM)
+               for u in range(promedus.num_vars))
+    ppicks = distinct_picks(promedus, WIDE_SLOTS, PAL_AUX_OA_LIM)
+    pvariants = [collapse_var(promedus, u)[0] for u in ppicks]
+    pokst, postate0, pofree, pon_free = window_inputs(torch, dev, pvariants, spec,
+                                                      POOLED_CHAINS)
+    print(f"3f, the wide aux tier's pooled caps ({card}): {pool} candidates within "
+          f"{PAL_AUX_OA_LIM} outcomes; spec {spec_cold_secs:.3f} s of host time from a cold "
+          f"cache, {spec_warm_secs:.3f} s warm; color_cap {spec.color_cap}, group_cap "
+          f"{spec.group_cap}, adj_cap {spec.adj_cap}, scope_cap {spec.scope_cap}, oa_cap "
+          f"{spec.oa_cap}, NVp {spec.num_rows}; collapse variants of vars {ppicks}", flush=True)
+    pcb = hash_block(POOLED_CHAINS)
+    pooled_err = max(compare_window(
+        torch, pokst, postate0, pofree, pon_free, spec.num_slots, POOLED_CHAINS, pcb,
+        f"{WIDE_SLOTS} collapse variants at pooled caps x {POOLED_CHAINS} chains").values())
+    # an 8-sweep counted window both ways from one state and seed
+    sk, ck = gibbs_cuda.gibbs_window(pokst, postate0.clone(), SEED, WIDE_PAIR_SWEEPS,
+                                     WIDE_PAIR_SWEEPS // 2, True, pcb)
+    sp, cp = plain_window(pokst)(postate0.clone(), SEED, WIDE_PAIR_SWEEPS,
+                                 WIDE_PAIR_SWEEPS // 2, True, pcb)
+    torch.cuda.synchronize()
+    nslot = spec.num_slots
+    differ = int(((sk[:, :nslot] != sp[:, :nslot]) & pofree[:, :, None]).sum().item())
+    sites_3f = int(pofree.sum().item()) * POOLED_CHAINS
+    check(differ <= MAX_MISMATCH * sites_3f,
+          f"3f: {differ} of {sites_3f} free sites differ after {WIDE_PAIR_SWEEPS} sweeps")
+    for name, cn in (("kernel", ck), ("plain", cp)):
+        got = int((cn.sum(dim=(1, 2, 4)) * pofree).sum().item())
+        check(got == WIDE_PAIR_SWEEPS * POOLED_CHAINS * pon_free,
+              f"3f: {name} count total {got} after {WIDE_PAIR_SWEEPS} sweeps")
+    print(f"3f ({card}): {WIDE_PAIR_SWEEPS}-sweep counted window, kernel against the plain "
+          f"version: {differ} of {sites_3f} free sites differ (bound {MAX_MISMATCH} of them), "
+          f"count totals exact", flush=True)
+    del sk, ck, sp, cp
 
     # ---- 3d. the kernel under a device mesh ----------------------------------
     def same_as(group, plain_group, what):
@@ -997,6 +1078,10 @@ def main() -> int:
             check(a_score.max_hellinger < HELL_BOUND,
                   f"{phase}: max Hellinger {a_score.max_hellinger:.5f} >= {HELL_BOUND}")
             aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
+            if split == "on":
+                check(aux_line and all(ln.startswith(
+                    f"aux group: wide tier, {GRID_CHAINS} chains per variant, candidate bound "
+                    f"{PAL_AUX_OA_LIM}") for ln in aux_line), f"{phase}: aux lines {aux_line}")
             print(f"cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x {CLI_ADAPT_SECS} "
                   f"--split-group {split} ({phase}; {card}): {secs:.1f} s, {launches_a} kernel "
                   f"launches, {len(steps)} adapt steps ({sum(steps):.3f} s of host time), "
@@ -1037,20 +1122,40 @@ def main() -> int:
         check(rc == 0 and os.path.exists(ck + ".aux"), "4e: the first run wrote no split snapshot")
         g1, meta1 = load_checkpoint(ck, model_ev, device=dev)
         snaps1 = dict(g1.aux._rbp_snaps)
+        check(g1.aux_tier == "wide" and g1.aux_cpv == g1.aux.cpv == GRID_CHAINS
+              and g1.collapse_oa_cap == PAL_AUX_OA_LIM
+              and g1.aux.caps == wide_aux_spec(model_ev, dev),
+              f"4e: the snapshot reloaded on the {g1.aux_tier} tier, {g1.aux_cpv} aux chains")
+        # one save of the snapshot's group, timed: the wide aux's slots hold
+        # 512 times the narrow tier's chains, and the periodic saves run on
+        # the budget clock
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(td, "4e_timed.npz"), g1)
+        save_secs = time.perf_counter() - t0
+        aux_mb = (g1.aux.state.numel() + g1.aux.halves.numel()) * 4 / 1e6
         reset_counts()
-        rc, log2 = run_cli(cli, base + ["-x", str(2 * (CLI_ADAPT_SECS // 3)), "--resume"])
+        # the snapshot's clock, its saves included, is spent: give more
+        resume_secs = math.ceil(meta1["runtime"]) + CLI_ADAPT_SECS // 3
+        rc, log2 = run_cli(cli, base + ["-x", str(resume_secs), "--resume"])
         launches_r = read_counts("4e")
         g2, meta2 = load_checkpoint(ck, model_ev, device=dev)
         check(rc == 0 and "RESUMED" in log2, "4e: the run did not resume")
         check(launches_r > 0, "4e: the resumed run did not launch the kernel")
-        check(meta2["total_samples"] > meta1["total_samples"], "4e: the sample count did not grow")
+        check(meta2["total_samples"] > meta1["total_samples"],
+              f"4e: the sample count did not grow ({meta1['runtime']:.2f} -> "
+              f"{meta2['runtime']:.2f} s of clock): " + "; ".join(
+                  ln.strip() for ln in log2.splitlines()
+                  if ln.startswith(("RESUMED", "checkpoint", "  Samps", "STOPPING"))))
         check(snaps1 and all(g2.aux._rbp_snaps[k] > n for k, n in snaps1.items()),
               f"4e: RB snapshots did not continue: {snaps1} -> {g2.aux._rbp_snaps}")
         print(f"kill and resume through the CLI (4d with --checkpoint; {card}): "
               f"{meta1['total_samples']:,} -> {meta2['total_samples']:,} samples, "
-              f"{meta1['runtime']:.1f} -> {meta2['runtime']:.1f} s of clock, RB snapshots "
+              f"{meta1['runtime']:.1f} -> {meta2['runtime']:.1f} s of clock, reloaded on the "
+              f"wide tier ({g1.aux_cpv} aux chains per variant, the spec's caps), RB snapshots "
               f"{snaps1} -> {dict(g2.aux._rbp_snaps)}, {launches_r} kernel launches after "
-              f"resume", flush=True)
+              f"resume (-x {resume_secs}); one save of the snapshot's split group "
+              f"{save_secs:.3f} s of host time ({aux_mb:.1f} MB of aux state and halves, "
+              f"{g1.aux.slot_cap} slots)", flush=True)
         del g1, g2
 
         # ---- 4f. the adaptive engine under a mesh; --mesh auto ------------------
@@ -1224,6 +1329,38 @@ def main() -> int:
               f"{RESUME_SECS} s more: {meta1['total_samples']:,} -> {res_c['samples']:,} "
               f"samples, {launches_c} kernel launches after resume", flush=True)
 
+        # ---- 4k. the narrow aux tier on the card -------------------------------
+        nmodel = torch_models.grid(discrete, 2, seed=4, card=9)
+        ntruth = exact_marginals(nmodel)
+        npath = write_net(td, "grid2_card9", nmodel, {}, ntruth)
+        check(wide_aux_spec(nmodel, dev) is None, "4k: the 2x2 grid at card 9 has a wide spec")
+        mar_n = os.path.join(td, "4k.MAR")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, log = run_cli(cli, [
+            "sample", "-m", npath, "-o", "-s", "adaptive", "-c", "2", "--vchains",
+            str(GRID_CHAINS), "-a", "2", "-b", str(200 * 4), "-w", str(100 * 4), "-x",
+            str(NARROW_SECS), "-e", str(SEED), "--split-group", "on", "--mar-out", mar_n])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches_n = read_counts("4k")
+        aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
+        steps = adapt_secs(log)
+        check(rc == 0 and launches_n > 0, f"4k: cli returned {rc}, {launches_n} kernel launches")
+        check(aux_line and all(ln.startswith(
+            f"aux group: narrow tier, {AUX_CHAINS} chains per variant, candidate bound "
+            f"{COLLAPSE_OA_DENSE_CAP}") for ln in aux_line), f"4k: aux lines {aux_line}")
+        check(len(steps) >= 1 and "collapsed vars" in log, f"4k: {len(steps)} adapt steps")
+        est = pad_marginals(read_mar_file(mar_n), nmodel.cards)
+        n_score = error_suite(est, ntruth, nmodel.cards, nmodel.fixed, None)
+        check(np.isfinite(est).all() and n_score.max_hellinger < HELL_BOUND,
+              f"4k: max Hellinger {n_score.max_hellinger:.5f} >= {HELL_BOUND}")
+        print(f"4k ({card}): cli sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x "
+              f"{NARROW_SECS} --split-group on, a 2x2 grid at card 9 (no candidate within "
+              f"{PAL_AUX_OA_LIM} outcomes): {secs:.1f} s, {aux_line}, {len(steps)} adapt steps, "
+              f"{launches_n} kernel launches, max Hellinger {n_score.max_hellinger:.6f} (bound "
+              f"{HELL_BOUND})", flush=True)
+
     # ---- 5. timing ---------------------------------------------------------
     def timed(fn, st0, sweeps, count=True, cb=cb) -> float:
         st = st0.clone()
@@ -1349,9 +1486,26 @@ def main() -> int:
             rate_line(f"{label}, {name}", sweeps * chains * nf,
                       best(kern(kst_h, by_site), st_h, sweeps, cb=cb_h))
         record(f"gibbs_window ({label.split(',')[0]})", replaces,
-               of_phases("4c") if kst_h is hkst else of_phases("4d", "4e", "5b adaptive"),
-               err, k_ms, p_ms, bound)
+               of_phases("4c") if kst_h is hkst else of_phases("4k"), err, k_ms, p_ms, bound)
     del hkst, hstate0, akst, astate0
+
+    # 3f's window: the wide aux tier's collapse variants at the pooled caps
+    polabel = (f"{WIDE_SLOTS} Promedus-shaped collapse variants at pooled caps x "
+               f"{POOLED_CHAINS} chains, {WIDE_PAIR_SWEEPS}-sweep counted window")
+    describe_launch(torch, pokst, POOLED_CHAINS, True, polabel)
+    pooled_ms = best(kern(pokst), postate0, WIDE_PAIR_SWEEPS, cb=pcb)
+    pooled_plain_ms = timed(plain(pokst), postate0, WIDE_PAIR_SWEEPS, cb=pcb)
+    pooled_bound = window_bound(pokst, POOLED_CHAINS, WIDE_PAIR_SWEEPS, True, clock_hz)
+    rate_line(polabel, WIDE_PAIR_SWEEPS * POOLED_CHAINS * pon_free, pooled_ms, pooled_plain_ms,
+              pooled_bound)
+    for name, by_site in (("thread per chain", False), ("site-parallel", True)):
+        describe_launch(torch, pokst, POOLED_CHAINS, True, f"{polabel}, {name}", by_site)
+        rate_line(f"{polabel}, {name}", WIDE_PAIR_SWEEPS * POOLED_CHAINS * pon_free,
+                  best(kern(pokst, by_site), postate0, WIDE_PAIR_SWEEPS, cb=pcb))
+    record("gibbs_window (wide aux tier, pooled caps)", "grample_tpu/ops/gibbs_pallas.py:297",
+           of_phases("4d", "4e", "5b adaptive"), pooled_err, pooled_ms, pooled_plain_ms,
+           pooled_bound)
+    del pokst, postate0
 
     # one shard of phase 3d's 2x2 mesh: the launch a sharded group makes
     sh_chains = shard_state0.shape[2]
@@ -1493,6 +1647,12 @@ def main() -> int:
     steps = adapt_secs(log)
     aux_line = [ln for ln in log.splitlines() if ln.startswith("aux group:")]
     check("split group" in log, "5b: the gate did not pick the split group")
+    check(len(aux_line) == 2 and all(ln.startswith(
+        f"aux group: wide tier, 8192 chains per variant, candidate bound {PAL_AUX_OA_LIM}")
+        for ln in aux_line) and aux_line[0].endswith("read from the cache"),
+        f"5b: the aux group is not on the wide tier with 3f's spec: {aux_line}")
+    ticks_5b, sweeps_5b = (int(x) for x in re.search(
+        r": (\d+) ticks, (\d+) sweeps", aux_line[1]).groups())
     check(res.samples > 0 and np.isfinite(res.marginals).all() and launches_5b > 0,
           "5b: the adaptive engine run produced nothing")
     check(len(steps) >= 1 and res.aux_secs > 0, f"5b: {len(steps)} adapt steps, aux "
@@ -1502,7 +1662,9 @@ def main() -> int:
           f"{len(res.collapsed)} collapsed vars, {res.variants} variants; "
           f"{res.samples_per_sec:.4e} counted site-samples/s over {res.runtime:.2f} s of "
           f"sampling clock; aux {res.aux_secs:.3f} s = {res.aux_secs / res.runtime:.3f} of the "
-          f"clock {aux_line}; host s per adapt step {[round(x, 3) for x in steps]} "
+          f"clock, {sweeps_5b / ticks_5b:.1f} aux sweeps per tick over {ticks_5b} ticks "
+          f"{aux_line}; wide spec {spec_cold_secs:.3f} s of host time from a cold cache, "
+          f"{spec_warm_secs:.3f} s warm (3f); host s per adapt step {[round(x, 3) for x in steps]} "
           f"(mean {np.mean(steps):.3f}); set-up {wall - res.runtime:.2f} s ({wall:.2f} s "
           f"wall); peak device memory {peak_gb:.2f} GB ({held_gb:.2f} GB of it held by earlier "
           f"phases); {launches_5b} kernel launches",

@@ -13,7 +13,8 @@ tests can feed one encoding and one chain state to both:
   - ``carry_group_state``: a reference ``ChainGroup``'s host and device
     state onto a port group built over the same variants, so both
     packages can continue from one state (adapt steps, RB snapshots,
-    merges).
+    merges); a split group is carried part by part, its aux group on
+    either tier (``AUX_CHAINS`` or full-width slots).
 """
 
 from __future__ import annotations
@@ -58,5 +59,5 @@ def chains_from_reference(state, halves, device) -> tuple:
     halves = np.asarray(halves)
     if not np.array_equal(halves, np.round(halves)):
         raise ValueError("window halves must hold whole counts")
-    return (torch.as_tensor(np.asarray(state, dtype=np.int32), device=device),
+    return (torch.as_tensor(np.array(state, dtype=np.int32), device=device),
             torch.as_tensor(halves.astype(np.int32), device=device))

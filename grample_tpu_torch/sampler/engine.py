@@ -293,6 +293,7 @@ class Engine:
                 # predates the first collapse: build it here, as a fresh
                 # run does, not on the clock at the first adapt step
                 group.prewarm_aux()
+                self._log_aux(group)
             t_clock = t_start if cfg.budget == "wall" else time.time()
         else:
             variants = [model] * n_slots
@@ -319,6 +320,7 @@ class Engine:
                 # the aux group's build and first launch, before the
                 # sampling clock anchors (wall mode keeps it on the clock)
                 group.prewarm_aux()
+                self._log_aux(group)
             t_clock = t_start if cfg.budget == "wall" else time.time()
             if cfg.anneal_stages > 0:
                 group.burn_annealed(burn_sweeps, cfg.anneal_stages)
@@ -446,8 +448,9 @@ class Engine:
         runtime = float(self._agreed([time.time() - t_clock])[0])
         if isinstance(group, SplitChainGroup) and group.aux_ticks:
             self.log(
-                f"aux group: {group.aux_ticks} ticks, {group.aux_tick_sweeps} "
-                f"sweeps ({group.aux_tick_sweeps / group.aux_ticks:.1f} per tick), "
+                f"aux group: {self._aux_shape(group)}: {group.aux_ticks} ticks, "
+                f"{group.aux_tick_sweeps} sweeps "
+                f"({group.aux_tick_sweeps / group.aux_ticks:.1f} per tick), "
                 f"{group.aux_secs:.3f} s")
         merged = group.merged_marginals()
         final = norm_marginals(merged, model.cards)
@@ -717,6 +720,22 @@ class Engine:
         cpv, v1, k = group.cpv, group.v1, group.kdim
         per_slot = enc_bytes + cpv * v1 * 4 + 2 * cpv * v1 * k * 4
         return cfg.max_variants if per_slot * cfg.max_variants <= (1 << 30) else 0
+
+    @staticmethod
+    def _aux_shape(group: SplitChainGroup) -> str:
+        """A split group's aux tier, chains per variant and candidate bound."""
+        return (f"{group.aux_tier} tier, {group.aux_cpv} chains per variant, "
+                f"candidate bound {group.collapse_oa_cap}")
+
+    def _log_aux(self, group: SplitChainGroup) -> None:
+        """The aux tier, and the host seconds of the wide spec where this
+        process looked for one (a CUDA device), with where they came from."""
+        line = f"aux group: {self._aux_shape(group)}"
+        if group.aux_spec_secs is not None:
+            line += (f"; wide spec {'found' if group.aux_tier == 'wide' else 'none'}, "
+                     f"{group.aux_spec_secs:.3f} s of host time, "
+                     + ("read from the cache" if group.aux_spec_cached else "computed"))
+        self.log(line)
 
     def _log_route(self, group) -> None:
         """One line for every group (a split group's main and aux) whose

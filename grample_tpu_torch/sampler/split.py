@@ -1,46 +1,82 @@
 """Split chain group: plain slots on plain caps, collapse slots apart.
 
-Counterpart of ``grample_tpu.sampler.split`` (its narrow tier).  In one
-``ChainGroup`` every slot runs at the group's caps, and on Promedus-class
-nets the collapse-headroom caps are both refused by the sweep kernel's
+Counterpart of ``grample_tpu.sampler.split``.  In one ``ChainGroup``
+every slot runs at the group's caps, and on Promedus-class nets the
+collapse-headroom caps are both refused by the sweep kernel's dense-bank
 gate (the dense tables of ``max_variants`` slots outgrow the table budget
-and fall into the gather bank, which sweeps as torch ops) and far slower
-per site: more state rows mean fewer chains per block on the card.  This wrapper keeps the reference's
-semantics (``MergeChains``, ``sampler/chain.go:96-148``: counts sum over
-all chains; a var collapsed in any chain takes that chain's estimate)
-while splitting the execution:
+and fall into the gather bank) and far slower per site: more state rows
+mean fewer chains per block on the card.  This wrapper keeps the
+reference's semantics (``MergeChains``, ``sampler/chain.go:96-148``:
+counts sum over all chains; a var collapsed in any chain takes that
+chain's estimate) while splitting the execution:
 
   - ``main``: a plain-caps group holding the starting simple chains at
     full ``chains_per_variant`` — the bulk of the throughput and of the
     merged counts;
-  - ``aux``: a group on ``aux_caps`` (dense collapse headroom for 8
-    slots) holding every adaptively collapsed variant at ``AUX_CHAINS``
-    chains each — enough mixing to feed their Rao-Blackwell snapshots.
+  - ``aux``: every adaptively collapsed variant, in one of two tiers,
+    picked once from the caps when the aux group is built (``_build_aux``):
+
+    * the wide tier, on a CUDA device: the main group's full
+      ``chains_per_variant`` per collapse variant, on the pooled caps of
+      ``wide_aux_spec`` (measured over every collapse candidate whose
+      conditioning set has at most ``PAL_AUX_OA_LIM`` = 8 outcomes, so a
+      later pick encodes without caps growth).  Only those candidates may
+      then be collapsed (``collapse_oa_cap`` 8).  The tier sets how many
+      chains feed each collapsed var's Rao-Blackwell mixture: at 8192
+      chains a variant, not 256, collapsed vars keep up with the live
+      ensemble.
+    * the narrow tier, wherever there is no spec (a CPU device, no
+      candidate, or pooled caps the kernel's dense bank does not take):
+      ``AUX_CHAINS`` chains per variant on ``aux_caps`` (dense collapse
+      headroom for 8 slots), candidates up to 256 outcomes
+      (``COLLAPSE_OA_DENSE_CAP``).
+
+    The reference picks the same way from its backend: the wide tier on
+    its accelerator, the narrow one on its CPU (``:114-115``).
 
 The aux group advances a bounded number of sweeps per engine tick
 (``flush``), re-sized from its measured rate to ``AUX_TICK_BUDGET_SECS``,
 and takes RB donor snapshots from the main group's states.
 
-Left out from the reference: the wide aux tier (``wide_aux_spec`` with
-its on-disk cache and ``PAL_AUX_OA_LIM``) and the background-build
-scaffolding (``adapt_ready``, ``join_prewarm``), which answer TPU compile
-times; the aux build here is synchronous (``prewarm_aux``).
+The spec costs tens of seconds of host time on Promedus-class nets (one
+collapse per candidate), so it is cached on disk under
+``~/.cache/grample_tpu_torch/auxspec/``, keyed by the model's cards,
+evidence and factor scopes.
+
+Left out from the reference: the background-build scaffolding
+(``adapt_ready``, ``join_prewarm``), the aux build is synchronous
+(``prewarm_aux``); and the demotion of a wide group whose kernel did not
+compile (``:454-461``): the tier is picked from the caps before any
+launch, and a launch that fails raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import tempfile
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from grample_tpu_torch.ops.sweep import kernel_refusal
 from grample_tpu_torch.pgm.discrete import DiscreteModel
-from grample_tpu_torch.pgm.encode import COLLAPSE_OA_DENSE_CAP, compute_caps, merge_caps
+from grample_tpu_torch.pgm.encode import (
+    COLLAPSE_OA_DENSE_CAP,
+    EncodeCaps,
+    caps_for_variants,
+    compute_caps,
+    merge_caps,
+)
 from grample_tpu_torch.sampler.chains import ANNEAL_STAGES, MAX_VARIANTS, ChainGroup
 from grample_tpu_torch.sampler.collapse import collapse_var, is_collapsible
 
-#: micro-chains per collapse variant in the aux group
+#: micro-chains per collapse variant in the narrow aux tier
 AUX_CHAINS = 256
 
 #: collapse variants the aux group will hold (bounds its device arrays)
@@ -52,6 +88,109 @@ AUX_TICK_SWEEPS = 64
 
 #: wall seconds of aux advance per engine tick the split group aims for
 AUX_TICK_BUDGET_SECS = 3.0
+
+#: outcome bound of the wide tier's candidate pool: a var whose
+#: replacement factor has an incidence of more rows is not collapsed when
+#: the wide tier runs (reference ``:66-74``, which chose 8 for its
+#: compiler's sake; the port keeps it, since it decides which vars may
+#: collapse)
+PAL_AUX_OA_LIM = 8
+
+#: widest local table a wide spec may have: the reference kernel's
+#: ``PAL_OA_MAX`` (``gibbs_pallas.py:219-221``), which its spec must meet
+SPEC_OA_MAX = 256
+
+
+def wide_tier_device(device) -> bool:
+    """True where the wide tier runs: on a CUDA device, the counterpart of
+    the reference's ``jax.default_backend() == "tpu"``."""
+    return torch.device(device).type == "cuda"
+
+
+def spec_cache_file(base_model: DiscreteModel) -> str:
+    """On-disk cache path of ``wide_aux_spec`` for ``base_model``
+    (reference ``:77-96``): the pooled caps are a function of the model's
+    cards, evidence and factor scopes and of the pool's bound.  Each
+    scope is hashed with its length, so that two factorizations of the
+    same vars do not share a key."""
+    h = hashlib.sha1()
+    h.update(np.asarray(base_model.cards, dtype=np.int64).tobytes())
+    h.update(np.asarray(base_model.fixed, dtype=np.int64).tobytes())
+    for f in base_model.factors:
+        scope = np.asarray(f.scope, dtype=np.int64)
+        h.update(np.int64(scope.size).tobytes())
+        h.update(scope.tobytes())
+    h.update(f"|{PAL_AUX_OA_LIM}|v1".encode())
+    return os.path.join(os.path.expanduser("~"), ".cache", "grample_tpu_torch", "auxspec",
+                        h.hexdigest()[:24] + ".json")
+
+
+def spec_accepted(caps: EncodeCaps) -> bool:
+    """The reference's ``pallas_eligible`` question (``:182``) on what
+    the port has: dense banks only, tables within ``SPEC_OA_MAX`` rows,
+    and caps the sweep kernel takes."""
+    return caps.gfac_cap == 0 and caps.oa_cap <= SPEC_OA_MAX and kernel_refusal(caps) is None
+
+
+def wide_aux_spec(base_model: DiscreteModel, device) -> Optional[EncodeCaps]:
+    """Pooled caps for a full-width aux group on ``device``, or None
+    (reference ``:99-184``).
+
+    None unless ``device`` is a CUDA device (``wide_tier_device``).  The
+    pool is every var ``is_collapsible`` admits at ``PAL_AUX_OA_LIM``
+    outcomes; the caps are the union of its collapse variants' caps
+    (``caps_for_variants``, ``slot_hint`` 8), so any later adapt pick
+    encodes without caps growth; they are kept where ``spec_accepted``.
+    The reference also encodes the 48 widest candidates to size its
+    kernel's VMEM estimate (``pal_bank_dims``, ``:160-179``); the port's
+    gate reads the caps alone, so it has no such probe."""
+    if not wide_tier_device(device):
+        return None
+    return pooled_spec(base_model)[0]
+
+
+def pooled_spec(base_model: DiscreteModel):
+    """(``wide_aux_spec``'s caps or None, whether they were read from the
+    on-disk cache), whatever the device.  A result is written to the
+    cache, None included, only where it follows from the model: no
+    candidate, or caps refused.  An unexpected error warns and returns
+    None without writing, so it does not outlive the process."""
+    path = spec_cache_file(base_model)
+    try:
+        with open(path) as fh:
+            d = json.load(fh)["caps"]
+        return (None if d is None else EncodeCaps(**d)), True
+    except (OSError, ValueError, KeyError, TypeError):
+        pass
+    blankets = base_model.blankets()
+    cands = [v for v in range(base_model.num_vars)
+             if is_collapsible(base_model, v, blankets[v], oa_cap=PAL_AUX_OA_LIM)]
+    caps = None
+    if cands:
+        try:
+            caps = caps_for_variants([collapse_var(base_model, v)[0] for v in cands],
+                                     slot_hint=8)
+        except Exception as exc:  # noqa: BLE001 - any failure leaves the narrow tier
+            warnings.warn(f"wide aux spec not computed ({exc!r}); the narrow aux tier runs",
+                          RuntimeWarning, stacklevel=2)
+            return None, False
+        if not spec_accepted(caps):
+            caps = None
+    _store_spec(path, caps)
+    return caps, False
+
+
+def _store_spec(path: str, caps: Optional[EncodeCaps]) -> None:
+    """Write ``caps`` (or None) to ``path`` whole, by a rename; a cache
+    that cannot be written is skipped."""
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+        with os.fdopen(fd, "w") as fh:
+            json.dump({"caps": None if caps is None else dataclasses.asdict(caps)}, fh)
+        os.replace(tmp, path)
+    except OSError:
+        pass
 
 
 def aux_caps(base_model: DiscreteModel):
@@ -83,18 +222,23 @@ def aux_caps(base_model: DiscreteModel):
 
 
 def aux_group_factory(max_variants: int = MAX_VARIANTS, rb_mixture: bool = True):
-    """ChainGroup factory for the aux group, shared by
-    :meth:`SplitChainGroup._ensure_aux` and checkpoint resume, so that a
-    resumed aux group gets the same caps and limits as a fresh one."""
+    """ChainGroup factory for the narrow aux tier and for checkpoint
+    resume, so that a resumed aux group gets the caps and limits of a
+    fresh one (reference ``:237-266``): a snapshot whose aux chains per
+    variant exceed ``AUX_CHAINS`` is a wide one, rebuilt on the wide spec
+    where ``device`` has one."""
 
     def make(model, chains_per_variant, converge_window, device, seed=0, **_kw):
+        caps = None
+        if chains_per_variant > AUX_CHAINS:
+            caps = wide_aux_spec(model, device)
         return ChainGroup(
             model,
             chains_per_variant=chains_per_variant,
             converge_window=converge_window,
             device=device,
             seed=seed,
-            caps=aux_caps(model),
+            caps=caps if caps is not None else aux_caps(model),
             max_variants=min(max_variants, AUX_MAX_VARIANTS),
             rb_mixture=rb_mixture,
         )
@@ -148,6 +292,16 @@ class SplitChainGroup:
         )
         self.aux: Optional[ChainGroup] = _aux
         self._aux_sweeps = AUX_TICK_SWEEPS
+        #: the adapt candidate bound of the aux tier built (None until the
+        #: aux build picks a tier): ``PAL_AUX_OA_LIM`` on the wide tier
+        self._aux_oa_cap: Optional[int] = None
+        if _aux is not None and _aux.cpv > AUX_CHAINS:
+            self._aux_oa_cap = PAL_AUX_OA_LIM
+        #: host seconds of the wide spec at the aux build (None where this
+        #: group did not look for one: a CPU device, an aux group restored
+        #: from a snapshot), and whether it came from the on-disk cache
+        self.aux_spec_secs: Optional[float] = None
+        self.aux_spec_cached = False
 
     # ---- aggregate views -------------------------------------------------
     @property
@@ -189,26 +343,72 @@ class SplitChainGroup:
 
     @property
     def collapse_oa_cap(self) -> int:
-        """Candidate bound for adapt_step: the aux caps' dense bound."""
-        return self.aux.caps.oa_dense_cap if self.aux is not None else COLLAPSE_OA_DENSE_CAP
+        """Candidate bound for adapt_step, set by the aux tier built
+        (reference ``:364-375``): ``PAL_AUX_OA_LIM`` on the wide tier, the
+        aux caps' dense bound on the narrow one."""
+        if self._aux_oa_cap is not None:
+            return self._aux_oa_cap
+        if self.aux is not None:
+            return self.aux.caps.oa_dense_cap
+        return COLLAPSE_OA_DENSE_CAP
+
+    @property
+    def aux_tier(self) -> Optional[str]:
+        """``"wide"`` or ``"narrow"``: the aux group's tier (None before
+        it is built)."""
+        if self.aux is None:
+            return None
+        return "wide" if self._aux_oa_cap == PAL_AUX_OA_LIM else "narrow"
 
     # ---- capacity / lifecycle -------------------------------------------
     def prewarm_aux(self) -> None:
-        """Build the aux group and first-launch its sweep during engine
-        start-up, so the first adapt step pays neither (the engine calls
-        it before the sampling clock anchors)."""
+        """Build the aux group (the wide spec included) and first-launch
+        its sweep during engine start-up, so the first adapt step pays
+        neither (the engine calls it before the sampling clock anchors)."""
         self._ensure_aux()
+
+    def _build_aux(self) -> ChainGroup:
+        """The aux group on the wide tier where the device has a spec
+        (reference ``:386-415``), else on the narrow one."""
+        spec = None
+        if wide_tier_device(self.device):
+            t0 = time.perf_counter()
+            spec, self.aux_spec_cached = pooled_spec(self.base)
+            self.aux_spec_secs = time.perf_counter() - t0
+        if spec is None:
+            return self._build_aux_legacy()
+        aux = ChainGroup(
+            self.base,
+            chains_per_variant=self.cpv,
+            converge_window=self.cw,
+            device=self.device,
+            seed=self.seed + 104729,
+            caps=spec,
+            max_variants=min(self._max_variants, AUX_MAX_VARIANTS),
+            rb_mixture=self.rb_mixture,
+        )
+        self.aux_cpv = self.cpv
+        self._aux_oa_cap = PAL_AUX_OA_LIM
+        # 8 slots up front: growth restacks the group on the clock
+        aux.reserve(8)
+        return aux
+
+    def _build_aux_legacy(self) -> ChainGroup:
+        """The narrow tier (reference ``:417-428``)."""
+        aux = aux_group_factory(self._max_variants, self.rb_mixture)(
+            self.base,
+            chains_per_variant=self.aux_cpv,
+            converge_window=self.cw,
+            device=self.device,
+            seed=self.seed + 104729,
+        )
+        self._aux_oa_cap = aux.caps.oa_dense_cap
+        aux.reserve(8)
+        return aux
 
     def _ensure_aux(self) -> ChainGroup:
         if self.aux is None:
-            aux = aux_group_factory(self._max_variants, self.rb_mixture)(
-                self.base,
-                chains_per_variant=self.aux_cpv,
-                converge_window=self.cw,
-                device=self.device,
-                seed=self.seed + 104729,
-            )
-            aux.reserve(8)
+            aux = self._build_aux()
             aux.warmup()
             self.aux = aux
         return self.aux

@@ -30,12 +30,25 @@ from grample_tpu_torch.pgm.exact import exact_marginals
 from grample_tpu_torch.sampler.adaptive import adapt_step
 from grample_tpu_torch.sampler.chains import ChainGroup
 from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
-from grample_tpu_torch.sampler.collapse import collapse_var
-from grample_tpu_torch.sampler.split import AUX_CHAINS, SplitChainGroup, aux_caps
+from grample_tpu_torch.sampler.collapse import collapse_var, is_collapsible
+from grample_tpu_torch.sampler.split import (
+    AUX_CHAINS,
+    PAL_AUX_OA_LIM,
+    SplitChainGroup,
+    aux_caps,
+    wide_aux_spec,
+)
 
 from tests import torch_models
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _home(tmp_path, monkeypatch):
+    """``HOME`` in the test's tmp dir: a split group on the card caches
+    its wide aux spec under it."""
+    monkeypatch.setenv("HOME", str(tmp_path))
 
 
 @pytest.fixture
@@ -267,6 +280,37 @@ def test_adaptive_group_on_card_vs_exact(cuda_device, split):
     # within ~8 sweeps, plus at most 1.5e-3 of bias from the uniform seeds
     assert h.max() < 5.0 / np.sqrt(8 * 4096 * 400 / 8) + 1.5e-3, h
     assert (g.convergence()[added] == 1.0).all()
+
+
+@pytest.mark.parametrize("net", ["grid4_evid", "promedus120"])
+def test_wide_aux_tier_on_card(cuda_device, net):
+    """On the card the split group builds its aux group on the wide tier
+    (full width, the pooled caps, candidate bound 8); one window of its
+    collapse variants at those caps through every form of the kernel
+    against the plain version, and the group's own aux advance launches
+    the kernel."""
+    if net == "promedus120":
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1, v=120)
+        m.apply_evidence(evidence)
+    else:
+        m = torch_models.build(port_pgm, net)
+    g = SplitChainGroup(m, chains_per_variant=4096, converge_window=20, device=cuda_device,
+                        seed=7)
+    g.add_variants([m, m])
+    g.prewarm_aux()
+    spec = wide_aux_spec(m, cuda_device)
+    assert g.aux_tier == "wide" and g.aux.caps == spec and g.aux_cpv == 4096
+    assert g.collapse_oa_cap == PAL_AUX_OA_LIM and g.aux.route == "kernel"
+    blankets = m.blankets()
+    picks = [v for v in range(m.num_vars)
+             if is_collapsible(m, v, blankets[v], oa_cap=PAL_AUX_OA_LIM)][:8]
+    variants = [collapse_var(m, v)[0] for v in picks]
+    _kernel_vs_plain([port_encode.encode_model(v, spec) for v in variants], cuda_device, 4096)
+    g.add_variants(variants, burn_sweeps=2)
+    assert g.aux.caps == spec
+    before = gibbs_cuda.gibbs_window.launches
+    g.flush()
+    assert g.aux_ticks == 1 and gibbs_cuda.gibbs_window.launches > before
 
 
 def test_kill_and_resume_bit_exact_on_card(cuda_device, tmp_path):
