@@ -158,6 +158,17 @@ non-zero:
      step, the spec's host seconds cold and warm (3f), set-up seconds and
      peak device memory, beside ``-s simple -c 2 --vchains 8192`` at the
      same budget; the 3f window timed with its launch and bound;
+  7. the port's bench (``python -m grample_tpu_torch.bench``) on the 4x4
+     grid of phase 4 with its exact ``.MAR``, ``BENCH_WALL`` and
+     ``BENCH_SECS`` cut to fit: exactly one JSON line, with ``value`` and
+     ``vs_baseline`` set, no error and no skipped leg, the throughput
+     leg on the kernel route with launches, the engine leg's max Hellinger
+     within the bound of phase 4; then the throughput leg in this process
+     on the 10x10 grid and the Promedus-shaped net, each rate beside phase
+     5's for the same shape, the anchor leg on the latter, and an engine
+     leg on it, scored against 5b's ``-s simple`` marginals written as its
+     ``.MAR`` (within ``HEAD_HELL_BOUND``), whose wall is printed beside
+     its budget, with and without the spec's cold seconds of 3f;
   6. a JSON line describing each kernel form and shape (the gather form's
      rows replace ``gibbs_xla.py:129-141``), then, last,
      ``{"ok": true, "device": {...}}``.
@@ -234,6 +245,8 @@ NARROW_SECS = 10
 RANKS_ADAPT_SECS, RANKS_CKPT_SECS, RESUME_SECS = 15, 3, 4
 #: seconds a 4j rank process may take before the script fails
 RANK_TIMEOUT = 240
+#: phase 7: the bench's wall budget and engine budget (s)
+BENCH_WALL, BENCH_SECS = 240, 20
 #: one rank of phase 4j: the CLI under torchrun's variables, then one line
 #: with this rank's kernel launches by form and, for each caller of a
 #: collective (a group method for the all-reduces, the engine's ``_run``
@@ -271,39 +284,6 @@ print("4j rank " + json.dumps({"rank": int(os.environ["RANK"]),
 sys.exit(rc)
 """
 REPO = os.path.dirname(os.path.abspath(__file__))
-
-#: the card's peaks for ``bound_ms``: device memory rate (H100 SXM data
-#: sheet) and thread operations per clock (132 SMs x 4 schedulers x 32
-#: lanes); the clock is the card's ``clocks.max.sm``
-PEAK_BYTES_PER_S = 3.35e12
-LANES = 132 * 128
-#: arithmetic operations of the counter hash: the seed word (a product,
-#: two xors), two mixing rounds (three shift-xor pairs and two products
-#: each), and the 24-bit uniform (a shift, a conversion, a product)
-HASH_OPS = 3 + 2 * 8 + 3
-
-
-def site_operations(k: int, count: bool, gather: bool = False) -> int:
-    """Arithmetic operations of one site's draw at card bound ``k``, as
-    the window's definition (``window_plain``; ``window_ops`` with a
-    gather bank) needs them, whatever a build emits for them."""
-    return (k  # logits outside the card masked
-            + (k - 1) + k + k  # the max, its subtraction, exp
-            + (k - 1)  # the total
-            + 1 + k + k  # the floor: a product, added to each, masked again
-            + (k - 1)  # the total again
-            + HASH_OPS + 1  # the uniform, scaled by the total
-            + (k - 2) + (k - 1) + (k - 1)  # running CDF, compares, outcome
-            + (1 if count else 0)  # the count
-            + (k if gather else 0))  # the gather sum added to the dense sum
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def max_sm_clock_hz() -> float:
@@ -495,31 +475,6 @@ def compare_window(torch, kst, state0, free_rows, n_free, nslot, chains, cb, lab
     return errs
 
 
-def window_bound(kst, chains, sweeps, count, clock_hz):
-    """(bound_ms, bound_by) of one window on ``kst``: the larger of the
-    bytes it must move over the card's memory rate (state rows read once,
-    site rows written once, live counts written once, lists and tables of
-    both banks read once) and the arithmetic its live work needs
-    (``site_operations`` per live site, ``k`` table adds per live dense or
-    gather incidence, one multiply-add per live scope entry of either
-    bank) at one operation per lane and clock, whichever route computes
-    it."""
-    from grample_tpu_torch.ops import gibbs_cuda
-    from grample_tpu_torch.ops.layout import H_WORDS, compact_counts
-
-    live = compact_counts(kst["c_lists"].cpu().numpy()).astype(np.int64)
-    sites, rows, incs, scope, tfloats, gincs, gscope = live.sum(axis=0)
-    k = kst["k_kmask"].shape[3]
-    words = int(kst["c_lists"][:, H_WORDS].sum().item())
-    nbytes = 4 * (chains * (rows + sites + (2 * k * sites if count else 0))
-                  + words + tfloats)
-    gather = gibbs_cuda.uses_gather(kst)
-    ops = sweeps * chains * (sites * site_operations(k, count, gather)
-                             + (incs + gincs) * k + scope + gscope)
-    by_bytes, by_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / (LANES * clock_hz) * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 def reshaped(kst, plan, threads, stage_lists, stage_tables):
     """``plan`` (thread per chain) at another block width and staging, or
     None where that does not fit a block's shared memory."""
@@ -670,6 +625,7 @@ def main() -> int:
     from grample_tpu_torch.metrics import error_suite
     from grample_tpu_torch.metrics.divergences import pad_marginals
     from grample_tpu_torch.ops import _build, gibbs_cuda
+    from grample_tpu_torch.ops.bound import card_line, window_bound
     from grample_tpu_torch.ops.gibbs_bank import chain_block, window_ops
     from grample_tpu_torch.ops.gibbs_torch import window_plain
     from grample_tpu_torch.ops.sweep import (
@@ -1828,6 +1784,89 @@ def main() -> int:
           f"the kernel's gather form): {secs:.1f} s, kernel launches by form "
           f"{path_launches['4i']}, last status line {rate_w!r}, max Hellinger "
           f"{w_score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
+
+    # ---- 7. the port's bench -----------------------------------------------
+    from grample_tpu_torch import bench
+
+    t7 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as td:
+        model = grid_model(4, 7)
+        model_ev = grid_model(4, 7)
+        model_ev.apply_evidence({5: 1, 10: 0})
+        write_net(td, "grid4", model, {5: 1, 10: 0}, exact_marginals(model_ev))
+        write_net(td, "grid10", grid_model(10, 1), {0: 1, 55: 0, 99: 1})
+        # no exact marginals for the Promedus-shaped net: its .MAR is 5b's
+        # 30 s -s simple run, as 4h holds its runs against it
+        write_net(td, "promedus", *torch_models.promedus_like(discrete, seed=1), res_s.marginals)
+        # a phase's own process reads the nets and the device from the
+        # environment, a phase called here from the module
+        os.environ.update(GRAMPLE_RES=td, BENCH_DEVICE="cuda")
+        bench.RES, bench.DEVICE = td, "cuda"
+        proc = subprocess.run(
+            [sys.executable, "-m", "grample_tpu_torch.bench"], cwd=REPO, capture_output=True,
+            text=True, timeout=BENCH_WALL + 60,
+            env=dict(os.environ, BENCH_NETS="grid4", BENCH_WALL=str(BENCH_WALL),
+                     BENCH_SECS=str(BENCH_SECS)))
+        lines = proc.stdout.splitlines()
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"7: the bench exited {proc.returncode} with {len(lines)} lines:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        line = json.loads(lines[0])
+        print(f"7 ({card}): python -m grample_tpu_torch.bench, BENCH_NETS=grid4 BENCH_WALL="
+              f"{BENCH_WALL} BENCH_SECS={BENCH_SECS}: {lines[0]}", flush=True)
+        leg = line["detail"].get("grid4", {})
+        check("skipped" not in line and "error" not in leg,
+              f"7: skipped {line.get('skipped')}, error {leg.get('error')}")
+        check(line["value"] and line["vs_baseline"], "7: no value or vs_baseline")
+        check(leg["route"] == "kernel" and leg["launches_by_form"] and leg["kernel"],
+              f"7: route {leg['route']}, launches {leg['launches_by_form']}, engine kernel "
+              f"{leg['kernel']}")
+        check(leg["max_hellinger"] < HELL_BOUND,
+              f"7: engine leg max Hellinger {leg['max_hellinger']} >= {HELL_BOUND}")
+        # the throughput leg on phase 5's shapes, in this process
+        for net, num_vars, rate_5, shape_5 in (
+                ("grid10", 100, TIMED_SWEEPS * GRID_CHAINS * n_free / (kernel_ms / 1e3),
+                 f"2 x {GRID_CHAINS} chains, the rule's pick"),
+                ("promedus", promedus.num_vars,
+                 TIMED_SWEEPS * WIDE_CHAINS * pn_free / (plain_copy_ms / 1e3),
+                 f"{WIDE_SLOTS} plain copies x {WIDE_CHAINS} chains")):
+            leg_t = bench.phase_throughput(net, 0.0)
+            check(leg_t["route"] == "kernel" and leg_t["launches_by_form"],
+                  f"7, throughput {net}: {leg_t}")
+            print(f"7 ({card}): throughput leg on {net}: {leg_t['device_samples_per_sec']:.4e} "
+                  f"counted site-samples/s at {bench.bench_chains(num_vars, 2, bench.CHAINS)} "
+                  f"chains, {leg_t['est_tops']} TOPS; phase 5's {TIMED_SWEEPS}-sweep window "
+                  f"({shape_5}) {rate_5:.4e}: {leg_t['device_samples_per_sec'] / rate_5:.3f} of "
+                  f"it", flush=True)
+        anchor_p = bench.phase_anchor("promedus", 0.0)
+        check(anchor_p.get("anchor_samples_per_sec", 0) > 0, f"7: anchor {anchor_p}")
+        # an engine leg on the larger net, its wall against its budget:
+        # what ENGINE_OVERHEAD stands for (its wide aux spec read from 3f's
+        # cache; a first run computes it, as 3f did from a cold one)
+        t0 = time.perf_counter()
+        leg_e = bench.run_phase_subprocess(
+            "engine", "promedus", bench.ENGINE_OVERHEAD + 2 * BENCH_SECS + 120, secs=BENCH_SECS)
+        wall_e = time.perf_counter() - t0
+        check("error" not in leg_e and leg_e["kernel"], f"7, engine promedus: {leg_e}")
+        check(leg_e["max_hellinger"] < HEAD_HELL_BOUND,
+              f"7, engine promedus: max Hellinger {leg_e['max_hellinger']} against 5b's -s "
+              f"simple >= {HEAD_HELL_BOUND}")
+    for key in ("GRAMPLE_RES", "BENCH_DEVICE"):
+        os.environ.pop(key)
+    read_counts("7")
+    for form, n in leg["launches_by_form"].items():
+        path_launches["7"][form] = path_launches["7"].get(form, 0) + n
+    print(f"7 ({card}): anchor leg on promedus {anchor_p['anchor_samples_per_sec']:.4e} samples/s "
+          f"on one core of the host ({cpu_name()}); engine leg on promedus, {BENCH_SECS} s budget: "
+          f"{leg_e['engine_samples_per_sec']:.4e} counted site-samples/s, {leg_e['collapsed_vars']} "
+          f"collapsed vars, max Hellinger against 5b's {ADAPT_SECS} s -s simple run "
+          f"{leg_e['max_hellinger']} (bound {HEAD_HELL_BOUND}), wall {wall_e:.1f} s = budget + "
+          f"{wall_e - BENCH_SECS:.1f} s with the wide aux spec cached, + "
+          f"{wall_e - BENCH_SECS + spec_cold_secs:.1f} s with it computed (3f: "
+          f"{spec_cold_secs:.1f} s; ENGINE_OVERHEAD {bench.ENGINE_OVERHEAD:.0f} s); launches "
+          f"{path_launches['7']}; "
+          f"phase 7 {time.perf_counter() - t7:.1f} s", flush=True)
 
     # ---- 6. results --------------------------------------------------------
     record("gibbs_window (wide tables)", "grample_tpu/ops/gibbs_pallas.py:355-367",

@@ -560,3 +560,22 @@ def test_eligible_caps_on_card_never_take_the_ops_route(cuda_device, monkeypatch
     # for draws on a CDF boundary
     assert (h.state != g.state).float().mean().item() <= 1e-3
     assert h.totals.sum() == g.totals.sum()
+
+
+def test_bench_throughput_leg_on_card(cuda_device, tmp_path, monkeypatch):
+    """The bench's throughput leg on a small grid on the card: the kernel
+    route, kernel launches, a rate, the card named."""
+    from grample_tpu_torch import bench
+    from grample_tpu_torch.ops.bound import card_line
+    from grample_tpu_torch.uai.writer import write_model
+
+    with open(tmp_path / "grid4.uai", "w") as fh:
+        fh.write(write_model(torch_models.grid(port_pgm, 4, seed=3)))
+    monkeypatch.setattr(bench, "RES", str(tmp_path))
+    monkeypatch.setattr(bench, "DEVICE", "cuda")
+    monkeypatch.setattr(bench, "CHAINS", 4096)
+    before = gibbs_cuda.gibbs_window.launches
+    out = bench.phase_throughput("grid4", 0.0)
+    assert out["route"] == "kernel" and out["device_samples_per_sec"] > 0
+    assert gibbs_cuda.gibbs_window.launches > before and sum(out["launches_by_form"].values()) > 0
+    assert out["device"] == card_line() and out["est_ops_per_site"] == 40
