@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``grample_tpu_torch``) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port (``grample_tpu_torch``) on one NVIDIA GPU,
+and on several where the machine has them (phase 8).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase 8    # the build and phase 8 alone, no result line
 
 Phases, each printed on its own line; any failure raises and exits
 non-zero:
@@ -91,8 +93,9 @@ non-zero:
   4f. ``-s adaptive`` through the engine under a 2x2 virtual mesh of the
      card (``Engine(cfg, devices=[card] * 4)``) on the 4x4 grid of phase 4:
      the ``device mesh:`` line and an ``ADAPT:`` line in the log, the same
-     Hellinger bound; and ``--mesh auto`` through the CLI on the one card,
-     which must run unsharded and say nothing of a mesh;
+     Hellinger bound; and ``--mesh auto`` through the CLI, which on one
+     card must run unsharded and say nothing of a mesh (on several it
+     shards over them all, as 8c holds);
   4g. tooling: ``dot`` on the 4x4 grid (as many edges as the moral graph
      has); the native anchor sampler (host C++, built with g++) on that
      grid, 2e6 single-site samples, within 0.02 max Hellinger of exact,
@@ -121,8 +124,8 @@ non-zero:
      marginals;
   4j. ``sample --distributed`` as two rank processes on the one card
      (torchrun's variables: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``
-     127.0.0.1, a free ``MASTER_PORT``; both see ``cuda:0``; each under a
-     timeout): (a) ``-s simple`` on the 10x10 grid, 2 x 131072 chains,
+     127.0.0.1, a free ``MASTER_PORT``; both see only the first card, as
+     ``cuda:0``; each under a timeout): (a) ``-s simple`` on the 10x10 grid, 2 x 131072 chains,
      over a 1x2 world mesh, stopped by ``-i`` after its first window:
      rank 0's MAR must equal, byte for byte, a one-process unsharded run's
      with the same seed; (b) ``-s adaptive -c 2 --vchains 131072 -a 2``
@@ -169,12 +172,42 @@ non-zero:
      leg on it, scored against 5b's ``-s simple`` marginals written as its
      ``.MAR`` (within ``HEAD_HELL_BOUND``), whose wall is printed beside
      its budget, with and without the spec's cold seconds of 3f;
+  8. the chain mesh on real cards, where the machine has two or more (N =
+     4 with four or more, else 2; with one card it prints ``8: not run: 1
+     card``); every line names each card and its power limit: (a) the
+     10x10 grid, 2 x (N x 131072) chains, a ``ShardedChainGroup`` on the
+     engine's default grid (``chain_mesh()``: 1x2 or 2x2) beside one
+     card's ``ChainGroup`` with the same hash width: state, halves and
+     totals equal after a burn and two counted windows, each shard's
+     tensors on its own card, every card's kernel launches counted
+     (``gibbs_window.launches_by_device``); (b) one 256-sweep counted
+     window on 1, 2 and N cards, weak (262144 chains a card) and strong
+     (2 x 131072 in all), CUDA events on every card and a host clock
+     around the window ending in a synchronize on every card, with the
+     efficiencies; (c) ``sample -s simple --mesh auto`` on the 4x4 grid of
+     phase 4 over the N cards within ``HELL_BOUND``, and the same stopped
+     by ``-i 1`` whose MAR equals a one-card ``--mesh off`` run's byte for
+     byte; (d) 4h's adaptive run under ``--mesh 2x2`` (1x2 on two cards)
+     through the CLI, 20 s, under ``torch.profiler`` (device activity by
+     card over the sampling clock): the gather-form route line, an adapt
+     step, the bound of 4h against 5b's ``-s simple`` marginals, windows
+     launched by card and the active slots of each grid row at every
+     tick; (e) ``--distributed`` as N rank processes, rank i seeing card i
+     alone (``CUDA_VISIBLE_DEVICES``): 8c's ``-i 1`` run, rank 0's MAR
+     equal to 8c's one-card run's, and 4j (b)'s adaptive run on the 4x4
+     grid, the same adapt steps on every rank and the bound of phase
+     4, with each rank's collectives; (f) a group on the N-card mesh (2 x
+     N x 8192 chains) saved, resumed on one card and on a 1xN mesh,
+     advanced, equal to the group that was never saved; (g)
+     ``python -m grample_tpu_torch.tools.scaling`` on the 10x10 grid at 1,
+     2 and N cards: every row on real cards, none in error;
   6. a JSON line describing each kernel form and shape (the gather form's
      rows replace ``gibbs_xla.py:129-141``), then, last,
      ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the repository beside it; without either it
-exits non-zero before printing any result.  ``HOME`` is pointed at a
+exits non-zero before printing any result.  Phase 8 runs last, after 7,
+and its launches join the sharded launch's entry of the JSON line.  ``HOME`` is pointed at a
 temporary directory for the run, so the wide aux spec's disk cache
 (``~/.cache/grample_tpu_torch``) starts cold and is removed at the end.
 """
@@ -194,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -245,10 +279,18 @@ NARROW_SECS = 10
 RANKS_ADAPT_SECS, RANKS_CKPT_SECS, RESUME_SECS = 15, 3, 4
 #: seconds a 4j rank process may take before the script fails
 RANK_TIMEOUT = 240
+#: phase 8: chains per card of the weak-scaling window (2 variants x half
+#: that) and timed repeats of each shape after one warm window; chains per
+#: variant per card of the checkpoint groups (8f); seconds a rank process
+#: of 8e, or the scaling tool (8g), may take before the script fails
+SCALE_CHAINS, SCALE_REPS = 2 * GRID_CHAINS, 3
+CKPT_CHAINS = 8192
+MESH_RANK_TIMEOUT = 300
 #: phase 7: the bench's wall budget and engine budget (s)
 BENCH_WALL, BENCH_SECS = 240, 20
-#: one rank of phase 4j: the CLI under torchrun's variables, then one line
-#: with this rank's kernel launches by form and, for each caller of a
+#: one rank of phases 4j and 8e: the CLI under torchrun's variables, then
+#: one line with this rank's kernel launches by form and by card and, for
+#: each caller of a
 #: collective (a group method for the all-reduces, the engine's ``_run``
 #: for rank 0's broadcasts, ``save_checkpoint`` for the saves), its calls,
 #: host milliseconds in all and the least of one call: a call's time
@@ -278,9 +320,10 @@ distributed.allreduce_sum = timed(distributed.allreduce_sum, 2)
 distributed.from_main = timed(distributed.from_main, 1)
 checkpoint.save_checkpoint = timed(checkpoint.save_checkpoint, 1)
 rc = cli.main(sys.argv[1:])
-print("4j rank " + json.dumps({"rank": int(os.environ["RANK"]),
-                               "launches": dict(gibbs_cuda.gibbs_window.launches_by_form),
-                               "collectives": held}), flush=True)
+print("rank " + json.dumps({"rank": int(os.environ["RANK"]),
+                            "launches": dict(gibbs_cuda.gibbs_window.launches_by_form),
+                            "by_card": dict(gibbs_cuda.gibbs_window.launches_by_device),
+                            "collectives": held}), flush=True)
 sys.exit(rc)
 """
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -570,21 +613,31 @@ def cpu_name() -> str:
     return f"{platform.machine()} CPU, model not reported"
 
 
-def run_ranks(argv, label):
-    """``sample ... argv`` as two rank processes of one world on the card
-    (``RANK_CHILD``); returns each rank's output and its ``4j rank``
-    record.  A rank that fails or outlives ``RANK_TIMEOUT`` fails the
-    script, and no rank outlives this call."""
+def visible_cards(torch):
+    """The ``CUDA_VISIBLE_DEVICES`` entry of each card this process sees:
+    what a rank process is given to see that card alone."""
+    vis = [x.strip() for x in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")
+           if x.strip()]
+    return vis[:torch.cuda.device_count()] or [str(i) for i in range(torch.cuda.device_count())]
+
+
+def run_ranks(argv, label, cards, timeout=RANK_TIMEOUT):
+    """``sample ... argv`` as one rank process of one world per entry of
+    ``cards``, rank i seeing card ``cards[i]`` alone (``RANK_CHILD``);
+    returns each rank's output and its record line.  A rank that fails or
+    outlives ``timeout`` fails the script, and no rank outlives this
+    call."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK_CHILD, *argv], cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
-        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port))) for r in range(2)]
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(len(cards)), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port), CUDA_VISIBLE_DEVICES=card))
+        for r, card in enumerate(cards)]
     try:
-        outs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -593,11 +646,29 @@ def run_ranks(argv, label):
     records = []
     for r, (p, out) in enumerate(zip(procs, outs)):
         check(p.returncode == 0, f"{label}: rank {r} exited {p.returncode}:\n{out[-4000:]}")
-        line = [ln for ln in out.splitlines() if ln.startswith("4j rank ")]
+        line = [ln for ln in out.splitlines() if ln.startswith("rank {")]
         check(len(line) == 1, f"{label}: rank {r} printed no launch record")
-        records.append(json.loads(line[0][len("4j rank "):]))
-        print(line[0], flush=True)
+        records.append(json.loads(line[0][len("rank "):]))
+        print(f"{label.split()[0]} {line[0]}", flush=True)
     return outs, records
+
+
+def collective_ms(records):
+    """Each rank's collectives from its record line: calls, mean and
+    least host ms of a call."""
+    return "; ".join(
+        f"rank {rec['rank']}: " + ", ".join(
+            f"{who} {n} calls, {ms / n:.3f} ms a call (least {least:.3f})"
+            for who, (n, ms, least) in sorted(rec["collectives"].items()))
+        for rec in records)
+
+
+def card_lines() -> list:
+    """Every card's name and power limit, one ``nvidia-smi`` line each."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
 
 
 def adapt_picks(log):
@@ -614,9 +685,380 @@ def kernel_order(torch, kst, state):
         .transpose(1, 2).contiguous()
 
 
+def cards_window(torch, group, sweeps):
+    """One counted window of ``group`` (any mesh): CUDA events on every
+    card it launches on and a host clock around the whole window, which
+    ends in a synchronize on every card.  Returns (wall ms, {device: ms})."""
+    devs = group.mesh.local_devices()
+    for d in devs:
+        torch.cuda.synchronize(d)
+    ev = {d: (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for d in devs}
+    t0 = time.perf_counter()
+    for d in devs:
+        ev[d][0].record(torch.cuda.current_stream(d))
+    group.advance(sweeps, defer=True)
+    for d in devs:
+        ev[d][1].record(torch.cuda.current_stream(d))
+    for d in devs:
+        torch.cuda.synchronize(d)
+    wall = (time.perf_counter() - t0) * 1e3
+    group.flush()
+    return wall, {str(d): ev[d][0].elapsed_time(ev[d][1]) for d in devs}
+
+
+def busy_by_card(torch, prof):
+    """{card index: ms} of device activity in a ``torch.profiler`` trace
+    (kernels and copies), or {} where the profiler gave no device time."""
+    busy = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.time_range.elapsed_us() / 1e3
+    return busy
+
+
+def mesh_on_cards(ctx):
+    """Phase 8, the chain mesh on N real cards (N = 2, or 4 where the
+    machine has four or more); see the module doc."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from grample_tpu_torch import cli
+    from grample_tpu_torch.metrics import error_suite
+    from grample_tpu_torch.metrics.divergences import pad_marginals
+    from grample_tpu_torch.ops import gibbs_cuda
+    from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
+    from grample_tpu_torch.pgm import discrete
+    from grample_tpu_torch.pgm.encode import compute_caps
+    from grample_tpu_torch.pgm.exact import exact_marginals
+    from grample_tpu_torch.sampler.chains import ChainGroup
+    from grample_tpu_torch.sampler.checkpoint import load_checkpoint, save_checkpoint
+    from grample_tpu_torch.uai import read_mar_file
+    from tests import torch_models
+
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    cards = ctx.card_lines[:n]
+    card = "; ".join(f"cuda:{i} {c}" for i, c in enumerate(cards))
+    dev = ctx.dev
+    t8 = time.perf_counter()
+    counts = ctx.counts
+
+    def same_as(group, plain_group, what):
+        """Every shard of ``group`` equals its block of ``plain_group``
+        (on the host: the shards live on other cards), and so do the
+        totals."""
+        nl, cl = group.local_slots, group.local_chains
+        pst, phv = plain_group.state.cpu(), plain_group.halves.cpu()
+        for sh in group.shards:
+            rows, cols = slice(sh.v0, sh.v0 + nl), slice(sh.c0, sh.c0 + cl)
+            check(torch.equal(sh.state.cpu(), pst[rows, cols]),
+                  f"8, {what}: shard ({sh.vi}, {sh.ci}) on {sh.device} state differs")
+            check(torch.equal(sh.halves.cpu(), phv[rows, :, cols]),
+                  f"8, {what}: shard ({sh.vi}, {sh.ci}) on {sh.device} halves differ")
+        check(np.array_equal(group.totals[: plain_group.slot_cap], plain_group.totals),
+              f"8, {what}: totals differ")
+
+    def on_own_cards(group, what):
+        """Each shard's tensors, and its row's sweep tensors, on its own
+        card, and N distinct cards in all."""
+        for sh in group.shards:
+            check(sh.state.device == sh.device == sh.halves.device
+                  and group.mesh.devices[sh.vi][sh.ci] == sh.device,
+                  f"8, {what}: shard ({sh.vi}, {sh.ci}) tensors on {sh.state.device}, "
+                  f"{sh.halves.device}, not {sh.device}")
+            check(all(t.device == sh.device for t in group.kstack[sh.vi][sh.device].values()),
+                  f"8, {what}: a sweep tensor of row {sh.vi} is not on {sh.device}")
+        names = sorted(str(sh.device) for sh in group.shards)
+        check(names == [f"cuda:{i}" for i in range(group.mesh.size)],
+              f"8, {what}: shards on {names}")
+
+    # ---- 8a. sharded equals unsharded, on real cards ------------------------
+    models, caps = grid_variants()
+    cpv = n * GRID_CHAINS
+    t0 = time.perf_counter()
+    sharded = ShardedChainGroup(models[0], cpv, 20, seed=SEED, caps=caps, mesh=chain_mesh())
+    unsharded = ChainGroup(models[0], cpv, 20, dev, seed=SEED, caps=caps)
+    unsharded.cb = sharded.cb
+    counts.reset()
+    for g in (sharded, unsharded):
+        if g is sharded:
+            gibbs_cuda.gibbs_window.launches_by_device = {}
+        g.add_variants(models)
+        g.burn(10)
+        g.advance(defer=True)
+        g.advance(defer=True)
+        g.flush()
+        if g is sharded:
+            by_card = dict(gibbs_cuda.gibbs_window.launches_by_device)
+            counts.read("8a")
+    on_own_cards(sharded, "8a")
+    check(sorted(by_card) == [f"cuda:{i}" for i in range(n)] and min(by_card.values()) > 0,
+          f"8a: kernel launches by card {by_card}")
+    same_as(sharded, unsharded, "8a, a burn and two counted windows")
+    merged = sharded.merged_marginals()
+    check(np.allclose(sharded.convergence(merged=merged), unsharded.convergence(merged=merged),
+                      rtol=1e-5), "8a: PSRF of the shards' moments differs from one card's")
+    print(f"8a ({card}): the 10x10 grid, 2 x {cpv} chains, a {sharded.mesh.shape} mesh of "
+          f"chain_mesh() (shards on {[str(sh.device) for sh in sharded.shards]}) beside one "
+          f"card's ChainGroup: state, halves and totals equal bit for bit after a burn and two "
+          f"counted windows, PSRF within 1e-5; kernel launches by card {by_card} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del sharded, unsharded
+
+    # ---- 8b. scaling of one window ------------------------------------------
+    def timed_group(n_cards, chains_per_variant):
+        g = ShardedChainGroup(models[0], chains_per_variant, TIMED_SWEEPS, seed=SEED,
+                              caps=caps, mesh=chain_mesh(n_devices=n_cards))
+        g.add_variants(models)
+        g.warmup()
+        cards_window(torch, g, TIMED_SWEEPS)  # warm
+        runs = [cards_window(torch, g, TIMED_SWEEPS) for _ in range(SCALE_REPS)]
+        wall, per = min(runs, key=lambda r: r[0])
+        del g
+        return wall, per
+
+    counts_8b = sorted({1, 2, n})
+    scaling = {}
+    counts.reset()
+    for kind, per_variant in (("weak", lambda k: k * SCALE_CHAINS // 2),
+                              ("strong", lambda k: GRID_CHAINS)):
+        for k in counts_8b:
+            wall, per = timed_group(k, per_variant(k))
+            scaling[kind, k] = wall
+            t1 = scaling[kind, 1]
+            eff = t1 / wall if kind == "weak" else t1 / (k * wall)
+            extra = (f", scaled speed-up N*t1/tN {k * t1 / wall:.3f}" if kind == "weak"
+                     else f", speed-up {t1 / wall:.3f}")
+            print(f"8b ({card}): {kind} scaling, 2 x {per_variant(k)} chains on {k} card(s) "
+                  f"({chain_mesh(n_devices=k).shape}), one {TIMED_SWEEPS}-sweep counted window, "
+                  f"best wall of {SCALE_REPS}: {wall:.3f} ms; per card "
+                  + ", ".join(f"{d} {ms:.3f} ms" for d, ms in per.items())
+                  + f"; efficiency {eff:.3f}{extra}", flush=True)
+    counts.read("8b")
+
+    with tempfile.TemporaryDirectory() as td:
+        # ---- 8c. the CLI on every card ---------------------------------------
+        model = grid_model(4, 7)
+        evidence = {5: 1, 10: 0}
+        model_ev = grid_model(4, 7)
+        model_ev.apply_evidence(evidence)
+        truth = exact_marginals(model_ev)
+        path = write_net(td, "grid4", model, evidence, truth)
+        v = model.num_vars
+        grid_shape = chain_mesh(n_devices=n).shape
+        mesh_arg = "auto" if torch.cuda.device_count() == n else \
+            f"{grid_shape['variants']}x{grid_shape['chains']}"
+        mesh_line = (f"device mesh: {grid_shape} over {n} devices; this process: "
+                     + ", ".join(f"cuda:{i}" for i in range(n)))
+        mar_out = os.path.join(td, "8c.MAR")
+        counts.reset()
+        gibbs_cuda.gibbs_window.launches_by_device = {}
+        t0 = time.perf_counter()
+        rc, log = run_cli(cli, [
+            "sample", "-m", path, "-d", "-o", "-s", "simple", "--mesh", mesh_arg,
+            "--vchains", str(GRID_CHAINS), "-b", str(200 * v), "-w", str(100 * v),
+            "-i", str(4 * 100 * 2 * GRID_CHAINS * (v - len(evidence))),
+            "-x", "60", "-e", str(SEED), "--mar-out", mar_out])
+        secs = time.perf_counter() - t0
+        by_card = dict(gibbs_cuda.gibbs_window.launches_by_device)
+        counts.read("8c")
+        check(rc == 0 and mesh_line in log.splitlines(), f"8c: rc {rc}, mesh line "
+              f"{[ln for ln in log.splitlines() if ln.startswith('device mesh')]}")
+        check(len(by_card) == n and min(by_card.values()) > 0, f"8c: launches by card {by_card}")
+        est = pad_marginals(read_mar_file(mar_out), model_ev.cards)
+        score = error_suite(est, truth, model_ev.cards, model_ev.fixed, None)
+        check(np.isfinite(est).all() and score.max_hellinger < HELL_BOUND,
+              f"8c: max Hellinger {score.max_hellinger:.5f} >= {HELL_BOUND}")
+        print(f"8c ({card}): cli sample -s simple --mesh {mesh_arg} on the 4x4 grid, 2 x "
+              f"{GRID_CHAINS} chains: {mesh_line!r}; {secs:.1f} s, launches by card {by_card}, "
+              f"max Hellinger {score.max_hellinger:.6f} (bound {HELL_BOUND})", flush=True)
+        argv_one = ["sample", "-m", path, "-d", "-s", "simple", "--vchains", str(GRID_CHAINS),
+                    "-b", str(200 * v), "-w", str(100 * v), "-i", "1", "-e", str(SEED)]
+        mar_mesh, mar_one = os.path.join(td, "8c_mesh.MAR"), os.path.join(td, "8c_one.MAR")
+        counts.reset()
+        rc_m, _ = run_cli(cli, argv_one + ["--mesh", mesh_arg, "--mar-out", mar_mesh])
+        counts.read("8c -i 1")
+        rc_o, _ = run_cli(cli, argv_one + ["--mesh", "off", "--mar-out", mar_one])
+        with open(mar_mesh) as fh_m, open(mar_one) as fh_o:
+            mar_one_text = fh_o.read()
+            check(rc_m == rc_o == 0 and fh_m.read() == mar_one_text,
+                  "8c: the -i 1 MAR on the mesh differs from one card's")
+        print(f"8c ({card}): the same stopped by -i 1 after its first window: the MAR on "
+              f"{n} cards equals the one-card --mesh off run's byte for byte", flush=True)
+
+        # ---- 8d. the adaptive engine on real cards (A11c) --------------------
+        hmodel, hevidence = torch_models.promedus_like(discrete, seed=1)
+        hmodel_ev, _ = torch_models.promedus_like(discrete, seed=1)
+        hmodel_ev.apply_evidence(hevidence)
+        hv = hmodel.num_vars
+        head_caps = compute_caps(hmodel_ev, collapse_headroom=True, slot_hint=128,
+                                 headroom_factors=2)
+        hpath = write_net(td, "promedus", hmodel, hevidence)
+        hmesh = f"{grid_shape['variants']}x{grid_shape['chains']}"
+        mar_h, trace_h = os.path.join(td, "8d.MAR"), os.path.join(td, "8d.t")
+        rows_by_tick = []  # active slots of each grid row, and the slot capacity
+
+        def rb_accumulate(self):  # once a tick
+            rows_by_tick.append(([min(max(self.num_variants - vi * self.local_slots, 0),
+                                      self.local_slots)
+                                  for vi in range(self.mesh.shape["variants"])], self.slot_cap))
+            return ChainGroup.rb_accumulate(self)
+
+        ShardedChainGroup.rb_accumulate = rb_accumulate
+        counts.reset()
+        gibbs_cuda.gibbs_window.launches_by_device = {}
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc, log = run_cli(cli, [
+                "sample", "-m", hpath, "-d", "-s", "adaptive", "-c", "2", "--vchains",
+                str(HEAD_CHAINS), "-a", "4", "-b", str(10 * hv), "-w", str(5 * hv), "-x",
+                str(HEAD_SECS), "-e", str(SEED), "--mesh", hmesh, "-t", trace_h,
+                "--mar-out", mar_h])
+        secs = time.perf_counter() - t0
+        del ShardedChainGroup.rb_accumulate
+        by_card = dict(gibbs_cuda.gibbs_window.launches_by_device)
+        counts.read("8d")
+        check(rc == 0, f"8d: cli returned {rc}")
+        out = summary(trace_h)
+        busy = busy_by_card(torch, prof)
+        del prof
+        route_line = [ln for ln in log.splitlines() if ln.startswith("sweep route:")]
+        steps = adapt_secs(log)
+        check(len(route_line) == 1 and route_line[0].startswith(
+            f"sweep route: kernel, gather form (gfac_cap={head_caps.gfac_cap})"),
+            f"8d: route line {route_line}")
+        check(len(steps) >= 1 and out["kernel"], f"8d: {len(steps)} adapt steps, kernel "
+              f"{out['kernel']}")
+        marg = pad_marginals(read_mar_file(mar_h), hmodel.cards)
+        h_score = error_suite(marg, ctx.simple_marginals, hmodel_ev.cards, hmodel_ev.fixed, None)
+        check(np.isfinite(marg).all() and h_score.max_hellinger < HEAD_HELL_BOUND,
+              f"8d: max Hellinger {h_score.max_hellinger:.5f} against -s simple >= "
+              f"{HEAD_HELL_BOUND}")
+        idle = sum(min(rows) == 0 for rows, _ in rows_by_tick)
+        busy_text = ("busy ms over the sampling clock by card: " + ", ".join(
+            f"cuda:{i} {ms:.1f} ({ms / 1e3 / out['runtime']:.3f})" for i, ms in sorted(busy.items()))
+            if busy else "busy: not measured (the profiler gave no device time)")
+        print(f"8d ({card}): sample -s adaptive -c 2 --vchains {HEAD_CHAINS} -a 4 -x {HEAD_SECS} "
+              f"--mesh {hmesh} on the Promedus-shaped net at all-gather headroom caps: "
+              f"{route_line[0]!r}; {secs:.1f} s wall, {len(steps)} adapt steps "
+              f"({sum(steps):.3f} s of host time), {len(out['collapsed'])} collapsed vars, "
+              f"{out['variants']} variants, {out['samples_per_sec']:.4e} counted "
+              f"site-samples/s under the profiler (4h's 2x2 virtual mesh: "
+              f"{ctx.rate_4h_mesh if ctx.rate_4h_mesh is None else f'{ctx.rate_4h_mesh:.4e}'}); "
+              f"windows launched by card {by_card}; {busy_text}; ticks with a grid row holding "
+              f"no active slot {idle} of {len(rows_by_tick)} (active slots by row, and the "
+              f"slot capacity, by tick {rows_by_tick}); max Hellinger against the -s simple run "
+              f"{h_score.max_hellinger:.6f} (bound {HEAD_HELL_BOUND})", flush=True)
+
+        # ---- 8e. ranks, one card each ----------------------------------------
+        vis = visible_cards(torch)[:n]
+        mar_ranks = os.path.join(td, "8e.MAR")
+        t0 = time.perf_counter()
+        outs, records = run_ranks(argv_one + ["--distributed", "--mesh", "auto",
+                                              "--mar-out", mar_ranks], "8e (a)", vis,
+                                  MESH_RANK_TIMEOUT)
+        secs_a = time.perf_counter() - t0
+        counts.add_ranks("8e", records)
+        rank_line = f"device mesh: {grid_shape} over {n} devices of {n} ranks; this process: cuda:0"
+        check(rank_line in outs[0].splitlines(), f"8e (a): no world mesh line {rank_line!r}")
+        with open(mar_ranks) as fh:
+            check(fh.read() == mar_one_text, "8e (a): rank 0's MAR differs from 8c's one card's")
+        print(f"8e (a) ({card}): sample -s simple -i 1 on the 4x4 grid over {n} rank processes, "
+              f"rank i seeing card i (CUDA_VISIBLE_DEVICES={vis}): rank 0's MAR equals 8c's "
+              f"one-card run byte for byte; {secs_a:.1f} s wall with process start; launches "
+              f"{[rec['launches'] for rec in records]}; collectives "
+              f"{collective_ms(records)}", flush=True)
+        mar_b, trace_b = os.path.join(td, "8e.MAR"), os.path.join(td, "8e.t")
+        t0 = time.perf_counter()
+        outs, records = run_ranks([
+            "sample", "-m", path, "-d", "-o", "-s", "adaptive", "-c", "2", "--vchains",
+            str(GRID_CHAINS), "-a", "2", "-b", str(200 * v), "-w", str(100 * v), "-e", str(SEED),
+            "-x", str(RANKS_ADAPT_SECS), "--distributed", "--mesh", "auto", "--mar-out", mar_b,
+            "-t", trace_b], "8e (b)", vis, MESH_RANK_TIMEOUT)
+        secs_b = time.perf_counter() - t0
+        counts.add_ranks("8e", records)
+        picks = [adapt_picks(out) for out in outs]
+        res_b = summary(trace_b)
+        check(picks[0] and all(p == picks[0] for p in picks),
+              f"8e (b): the ranks' adapt steps differ: {picks}")
+        est = pad_marginals(read_mar_file(mar_b), model_ev.cards)
+        b_score = error_suite(est, truth, model_ev.cards, model_ev.fixed, None)
+        check(np.isfinite(est).all() and b_score.max_hellinger < HELL_BOUND,
+              f"8e (b): max Hellinger {b_score.max_hellinger:.5f} >= {HELL_BOUND}")
+        print(f"8e (b) ({card}): sample -s adaptive -c 2 --vchains {GRID_CHAINS} -a 2 -x "
+              f"{RANKS_ADAPT_SECS} over a {grid_shape} world mesh of {n} rank processes, one "
+              f"card each: {secs_b:.1f} s wall with process start; every rank: {picks[0]}; "
+              f"collapsed vars {res_b['collapsed']}, {res_b['variants']} variants; "
+              f"{res_b['samples_per_sec']:.4e} counted site-samples/s over {res_b['runtime']:.2f} "
+              f"s of sampling clock (4j (b), two ranks on one card: "
+              f"{ctx.rate_4j if ctx.rate_4j is None else f'{ctx.rate_4j:.4e}'}); max Hellinger "
+              f"{b_score.max_hellinger:.6f} (bound {HELL_BOUND}); launches "
+              f"{[rec['launches'] for rec in records]}; collectives {collective_ms(records)}",
+              flush=True)
+
+        # ---- 8f. checkpoints across cards ------------------------------------
+        ck_cpv = n * CKPT_CHAINS
+        counts.reset()
+        g = ShardedChainGroup(models[0], ck_cpv, 20, seed=SEED, caps=caps, mesh=chain_mesh())
+        p = ChainGroup(models[0], ck_cpv, 20, dev, seed=SEED, caps=caps)
+        p.cb = g.cb
+        for x in (g, p):
+            x.add_variants(models)
+            x.burn(10)
+            x.advance()
+        ck = os.path.join(td, "8f.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, g)
+        save_secs = time.perf_counter() - t0
+        one, _ = load_checkpoint(ck, models[0], device=dev)
+        row, _ = load_checkpoint(ck, models[0], device=dev, make_group=lambda m, **kw:
+                                 ShardedChainGroup(m, mesh=chain_mesh(n_devices=n, variant_ways=1),
+                                                   caps=caps, **kw))
+        check(not isinstance(one, ShardedChainGroup) and one.cb == g.cb
+              and row.mesh.shape == {"variants": 1, "chains": n} and row.cb == g.cb,
+              f"8f: resumed as {type(one).__name__} cb {one.cb}, {row.mesh.shape} cb {row.cb}")
+        on_own_cards(row, "8f")
+        for x in (g, p, one, row):
+            x.advance()
+        same_as(g, p, "8f, the group that was never saved")
+        same_as(row, p, f"8f, saved on {g.mesh.shape}, resumed on 1x{n}, advanced")
+        check(torch.equal(one.state, p.state) and torch.equal(one.halves, p.halves)
+              and np.array_equal(one.totals, p.totals),
+              f"8f: saved on {g.mesh.shape}, resumed on one card: differs")
+        counts.read("8f")
+        print(f"8f ({card}): 2 x {ck_cpv} chains saved on the {g.mesh.shape} mesh "
+              f"({save_secs:.3f} s), resumed on one card and on a 1x{n} mesh, advanced: both "
+              f"equal to the group that was never saved", flush=True)
+        del g, p, one, row
+
+        # ---- 8g. the scaling tool --------------------------------------------
+        write_net(td, "grid10", grid_model(10, 1), {0: 1, 55: 0, 99: 1})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "grample_tpu_torch.tools.scaling", "--res", td, "--net",
+             "grid10", "--counts", ",".join(map(str, counts_8b)), "--cpv", str(GRID_CHAINS)],
+            cwd=REPO, capture_output=True, text=True, timeout=MESH_RANK_TIMEOUT)
+        rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        check(proc.returncode == 0 and len(rows) == len(counts_8b)
+              and all(not r.get("virtual", True) and "error" not in r for r in rows),
+              f"8g: the scaling tool exited {proc.returncode}: {proc.stdout[-3000:]}"
+              f"{proc.stderr[-3000:]}")
+        r1 = rows[0]
+        for r in rows:
+            print(f"8g ({card}): tools.scaling row {json.dumps(r)}; weak efficiency of the "
+                  f"samples/s {r['samples_per_sec'] / (r['devices'] * r1['samples_per_sec']):.3f}",
+                  flush=True)
+        print(f"8g: {time.perf_counter() - t0:.1f} s with process start", flush=True)
+    print(f"8 ({card}): phase 8 {time.perf_counter() - t8:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
+    only8 = sys.argv[1:] == ["--phase", "8"]
+    if sys.argv[1:] and not only8:
+        print("usage: chip_smoke.py [--phase 8]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -668,6 +1110,7 @@ def main() -> int:
     def reset_counts():
         gibbs_cuda.gibbs_window.launches = 0
         gibbs_cuda.gibbs_window.launches_by_form = {}
+        gibbs_cuda.gibbs_window.launches_by_device = {}
         window_ops.launches = 0
         window_ops.launches_by_form = {}
 
@@ -675,6 +1118,19 @@ def main() -> int:
         path_launches[phase] = dict(gibbs_cuda.gibbs_window.launches_by_form)
         ops_windows[phase] = dict(window_ops.launches_by_form)
         return gibbs_cuda.gibbs_window.launches
+
+    def add_rank_launches(phase, records):
+        by_form = path_launches.setdefault(phase, {})
+        ops_windows.setdefault(phase, {})
+        for rec in records:
+            for form, k in rec["launches"].items():
+                by_form[form] = by_form.get(form, 0) + k
+
+    ctx = types.SimpleNamespace(  # what phase 8 reads of the phases before it
+        dev=dev, card_lines=card_lines(), simple_marginals=None, rate_4h_mesh=None,
+        rate_4j=None,
+        counts=types.SimpleNamespace(reset=reset_counts, read=read_counts,
+                                     add_ranks=add_rank_launches))
 
     # ---- 1. the card -----------------------------------------------------
     card = card_line()
@@ -694,6 +1150,21 @@ def main() -> int:
         print(f"ptxas, {name}<{kmax}, {form}, {gather}> (card bound, counts form, gather "
               f"form): {regs.split(': ')[1]}; {spills}", flush=True)
     clock_hz = max_sm_clock_hz()
+    if only8:  # phase 8 alone, against its own -s simple run of 5b
+        if torch.cuda.device_count() < 2:
+            print("8: not run: 1 card", flush=True)
+            return 0
+        with tempfile.TemporaryDirectory() as td:
+            m_plain, p_evidence = torch_models.promedus_like(discrete, seed=1)
+            v = m_plain.num_vars
+            ctx.simple_marginals = Engine(EngineConfig(
+                model_path=write_net(td, "promedus", m_plain, p_evidence), device="cuda",
+                use_evidence=True, sampler="simple", chains=2, chains_per_variant=8192,
+                burnin=50 * v, converge_window=100 * v, max_secs=float(ADAPT_SECS), seed=SEED),
+                log=lambda s: None).run().marginals
+        mesh_on_cards(ctx)
+        print("phase 8 alone: no result line", flush=True)
+        return 0
 
     # ---- 3. kernel against the plain version --------------------------------
     models, caps = grid_variants()
@@ -1131,7 +1602,8 @@ def main() -> int:
         rate_4f = res.samples_per_sec
         mesh_line = [ln for ln in lines if ln.startswith("device mesh:")]
         steps = adapt_secs("\n".join(lines))
-        check(mesh_line == ["device mesh: {'variants': 2, 'chains': 2} over 4 devices"],
+        check(mesh_line == ["device mesh: {'variants': 2, 'chains': 2} over 4 devices; "
+                            "this process: cuda:0"],
               f"4f: mesh line {mesh_line}")
         check(not any("split group" in ln for ln in lines), "4f: a split group under a mesh")
         check(len(steps) >= 1 and len(res.collapsed) >= 2,
@@ -1153,10 +1625,14 @@ def main() -> int:
                                 "-w", str(100 * v), "-x", "5", "-e", str(SEED)])
         launches_auto = read_counts("4f auto")
         check(rc == 0 and "FINAL" in log, f"4f: --mesh auto returned {rc}")
-        check("device mesh" not in log, "4f: --mesh auto on one card spoke of a mesh")
+        n_cards = torch.cuda.device_count()
+        # one card: unsharded; several: a mesh over them all (phase 8c)
+        check(("device mesh" in log) == (n_cards > 1),
+              f"4f: --mesh auto on {n_cards} card(s): {log.count('device mesh')} mesh lines")
         check(launches_auto > 0, "4f: --mesh auto did not launch the kernel")
-        print(f"cli sample -s simple --mesh auto on {torch.cuda.device_count()} card: "
-              f"unsharded, {launches_auto} kernel launches", flush=True)
+        print(f"cli sample -s simple --mesh auto on {n_cards} card(s): "
+              f"{'sharded' if n_cards > 1 else 'unsharded'}, {launches_auto} kernel launches",
+              flush=True)
 
         # ---- 4g. tooling --------------------------------------------------------
         from grample_tpu_torch import native
@@ -1190,20 +1666,7 @@ def main() -> int:
               f"(bound 0.02); native tokenizer's model equals the portable one's", flush=True)
 
         # ---- 4j. --distributed: two rank processes on the card ------------------
-        rank_launches = {}
-
-        def add_launches(records):
-            for rec in records:
-                for form, n in rec["launches"].items():
-                    rank_launches[form] = rank_launches.get(form, 0) + n
-
-        def collective_ms(records):
-            return "; ".join(
-                f"rank {rec['rank']}: " + ", ".join(
-                    f"{who} {n} calls, {ms / n:.3f} ms a call (least {least:.3f})"
-                    for who, (n, ms, least) in sorted(rec["collectives"].items()))
-                for rec in records)
-
+        one_card = [visible_cards(torch)[0]] * 2  # both ranks on the first card
         gmodel = grid_model(10, 1)
         gpath = write_net(td, "grid10", gmodel, {0: 1, 55: 0, 99: 1})
         gv = gmodel.num_vars
@@ -1212,9 +1675,10 @@ def main() -> int:
         mar_ranks, mar_one = os.path.join(td, "4j_ranks.MAR"), os.path.join(td, "4j_one.MAR")
         t0 = time.perf_counter()
         outs, records = run_ranks(
-            argv_a + ["--distributed", "--mesh", "1x2", "--mar-out", mar_ranks], "4j (a)")
+            argv_a + ["--distributed", "--mesh", "1x2", "--mar-out", mar_ranks], "4j (a)",
+            one_card)
         secs_a = time.perf_counter() - t0
-        add_launches(records)
+        add_rank_launches("4j", records)
         check("device mesh: {'variants': 1, 'chains': 2} over 2 devices of 2 ranks" in outs[0],
               "4j (a): no world mesh line")
         rc, _ = run_cli(cli, argv_a + ["--mar-out", mar_one])
@@ -1234,9 +1698,9 @@ def main() -> int:
         t0 = time.perf_counter()
         outs, records = run_ranks(
             argv_b + ["-x", str(RANKS_ADAPT_SECS), "--distributed", "--mesh", "2x1",
-                      "--mar-out", mar_b, "-t", trace_b], "4j (b)")
+                      "--mar-out", mar_b, "-t", trace_b], "4j (b)", one_card)
         secs_b = time.perf_counter() - t0
-        add_launches(records)
+        add_rank_launches("4j", records)
         picks = [adapt_picks(out) for out in outs]
         res_b = summary(trace_b)
         check(picks[0] and picks[0] == picks[1],
@@ -1260,11 +1724,9 @@ def main() -> int:
         t0 = time.perf_counter()
         outs, records = run_ranks(
             argv_b + ["-x", str(RANKS_CKPT_SECS), "--checkpoint", ck, "--checkpoint-secs", "2",
-                      "--distributed", "--mesh", "2x1"], "4j (c)")
+                      "--distributed", "--mesh", "2x1"], "4j (c)", one_card)
         secs_c = time.perf_counter() - t0
-        add_launches(records)
-        path_launches["4j"] = rank_launches
-        ops_windows["4j"] = {}
+        add_rank_launches("4j", records)
         meta1 = read_meta(ck)
         trace_c = os.path.join(td, "4j_resume.t")
         reset_counts()
@@ -1385,7 +1847,7 @@ def main() -> int:
                                  for form in forms)
 
     def of_phases(*phases):
-        return lambda paths: sum(sum(paths[ph].values()) for ph in phases)
+        return lambda paths: sum(sum(paths.get(ph, {}).values()) for ph in phases)
 
     # the 10x10 grid: every kernel form against one plain run each
     sites = TIMED_SWEEPS * GRID_CHAINS * n_free
@@ -1477,7 +1939,8 @@ def main() -> int:
           f"window {kernel_ms:.3f} ms ({gibbs_cuda.form_name(sh_plan)}; one card, one stream: "
           f"no scaling figure)", flush=True)
     record("gibbs_window (sharded launch)", "grample_tpu/parallel/mesh.py:137",
-           of_phases("4f", "4j"), max(shard_errs), sh_ms, sh_plain_ms, sh_bound)
+           of_phases("4f", "4j", "8a", "8b", "8c", "8c -i 1", "8d", "8e"),
+           max(shard_errs), sh_ms, sh_plain_ms, sh_bound)
     del shard_kst, shard_state0
 
     wsites = WIDE_CHAINS * wn_free
@@ -1867,6 +2330,14 @@ def main() -> int:
           f"{spec_cold_secs:.1f} s; ENGINE_OVERHEAD {bench.ENGINE_OVERHEAD:.0f} s); launches "
           f"{path_launches['7']}; "
           f"phase 7 {time.perf_counter() - t7:.1f} s", flush=True)
+
+    # ---- 8. the mesh on real cards -------------------------------------------
+    if torch.cuda.device_count() >= 2:
+        ctx.simple_marginals, ctx.rate_4h_mesh, ctx.rate_4j = (
+            res_s.marginals, rates_h["2x2 virtual mesh"], res_b["samples_per_sec"])
+        mesh_on_cards(ctx)
+    else:
+        print("8: not run: 1 card", flush=True)
 
     # ---- 6. results --------------------------------------------------------
     record("gibbs_window (wide tables)", "grample_tpu/ops/gibbs_pallas.py:355-367",

@@ -3,8 +3,9 @@
 ``gibbs_window`` computes what ``ops.gibbs_torch.window_plain`` computes
 and returns the same ``(state, counts)``, but only for CUDA tensors: it
 launches the kernel on the current stream or raises.
-``gibbs_window.launches`` counts its launches, and
-``gibbs_window.launches_by_form`` the same by kernel form.
+``gibbs_window.launches`` counts its launches,
+``gibbs_window.launches_by_form`` the same by kernel form and
+``gibbs_window.launches_by_device`` by the card a launch ran on.
 
 The kernel reads the compact work lists of ``ops.layout`` (``c_lists``,
 ``c_tables``, ``c_rows``), never the dense rectangles.  An encoding with a
@@ -246,12 +247,16 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
     gibbs_window.launches += 1
     name = form_name(plan)
     gibbs_window.launches_by_form[name] = gibbs_window.launches_by_form.get(name, 0) + 1
+    by_dev = gibbs_window.launches_by_device
+    by_dev[str(dev)] = by_dev.get(str(dev), 0) + 1
     return state, counts
 
 
 gibbs_window.launches = 0
 #: the same count split by kernel form (``form_name``)
 gibbs_window.launches_by_form = {}
+#: the same count by device (``"cuda:1"``): which cards of a mesh launched
+gibbs_window.launches_by_device = {}
 
 
 def form_name(plan: Plan) -> str:

@@ -6,8 +6,17 @@ Counterpart of ``jax.distributed.initialize()`` (reference
 chains axis, ``:149-151``, and of the PSRF moments over both axes,
 ``:201-203``).  N processes, typically one per host, each owning the
 devices it sees, run one ``(variants, chains)`` chain mesh together
-(``parallel.mesh``).  To split one host between processes, give each its
-own ``CUDA_VISIBLE_DEVICES``.
+(``parallel.mesh``).
+
+**Splitting one host.**  Give each process its own cards with
+``CUDA_VISIBLE_DEVICES``: four rank processes on a host of four NVIDIA
+H100s, rank ``i`` seeing card ``i`` (its ``cuda:0``), form a 2x2 world
+mesh under ``--mesh auto`` whose MAR equals one process's byte for byte
+and whose ranks take the same adapt steps (``chip_smoke.py`` 8e).
+Without it every rank claims every card it sees: under ``--mesh auto``
+the mesh then has a position per (rank, card) pair, two or more on each
+card, and an explicit ``VxC`` grid takes the first ``V*C`` of those, all
+of rank 0's first, so later ranks may own none.
 
 **Why gloo.**  The port reduces on the host: a window's count delta
 reaches the host at ``flush`` whatever the mesh, and the PSRF moments are

@@ -654,7 +654,9 @@ class Engine:
                 from grample_tpu_torch.parallel.mesh import ShardedChainGroup
 
                 self.log(f"device mesh: {mesh.shape} over {mesh.size} devices"
-                         + ("" if mesh.ranks is None else f" of {distributed.world()} ranks"))
+                         + ("" if mesh.ranks is None else f" of {distributed.world()} ranks")
+                         + "; this process: "
+                         + (", ".join(map(str, mesh.local_devices())) or "none"))
                 return ShardedChainGroup(model, mesh=mesh, **kw)
             if cfg.sampler == "adaptive" and self._want_split(cfg, model):
                 self.log("split group: plain slots on plain caps + "

@@ -8,12 +8,18 @@ shard moments are summed on the host).
     python -m grample_tpu_torch.tools.scaling --net Grids_13 --out results/scaling.jsonl
 
 On a machine with as many GPUs as shards the mesh takes one card per
-shard.  With fewer it builds a virtual mesh: every shard on ``--device``
+shard (``"virtual": false``, ``"cards"`` names them): one process
+launches each card's window in turn, and the cards run side by side (on
+four NVIDIA H100 80GB HBM3 at 700.00 W the 10x10 grid at 262144 chains a
+card kept 0.991 of one card's samples/s per card; ``chip_smoke.py`` 8g).
+With fewer it builds a virtual mesh: every shard on ``--device``
 (``parallel.mesh.chain_mesh(devices=...)``, where the reference forces a
 host-platform device count), and the row says ``"virtual": true``.  A
 virtual mesh serialises its shards on one device, so its rows measure
 what sharding costs there (more, smaller launches and the host's
-reduction), not how the runtime scales.
+reduction), not how the runtime scales.  The sweep clock starts after
+every card has finished the burn-in and stops when the flush has read
+every card's counts.
 
 Emits one JSON line per (net, shard count).
 """
@@ -48,25 +54,30 @@ def measure(net: str, res_dir: str, n_dev: int, cpv_per_dev: int,
     g.add_variant(m)
     g.warmup()
     g.burn(16)
+    cards = mesh.local_devices()
+    for d in cards:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     # sweep timing: windows dispatched with deferred deltas, one sync
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(windows):
         g.advance(cw, defer=True)
     g.flush()
-    sweep_secs = time.time() - t0
+    sweep_secs = time.perf_counter() - t0
     samples = g.total_samples
     # reduction surface: merge + PSRF at scoring cadence
-    t1 = time.time()
+    t1 = time.perf_counter()
     reps = 3
     for _ in range(reps):
         merged = g.merged_marginals()
         g.convergence(merged=merged)
-    red_secs = (time.time() - t1) / reps
+    red_secs = (time.perf_counter() - t1) / reps
     return {
         "net": net,
         "devices": n_dev,
         "virtual": virtual,
         "device": str(dev),
+        "cards": [str(d) for d in cards],
         "chains": g.num_chains,
         "chains_per_device": cpv_per_dev * g.num_variants,
         "windows": windows,

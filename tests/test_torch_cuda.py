@@ -3,8 +3,9 @@ at the plain models' widths, at the wide local tables of collapse
 variants (64 to 1024 rows, scopes up to 11), on collapse-headroom
 encodings and, in its gather form, on encodings with a flat-table gather
 bank (against ``window_ops``); the adaptive sampler and kill-and-resume on the card; groups
-sharded over a virtual mesh of the card (and over two cards where the
-machine has them).
+sharded over a virtual mesh of the card, and over two and four cards
+where the machine has them (a case that needs more cards than the
+machine has skips inside the test).
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device.  The file imports no JAX, so it runs on a GPU machine that has
@@ -400,20 +401,60 @@ def test_sharded_checkpoint_crosses_meshes_on_card(cuda_device, tmp_path):
     assert torch.equal(u.state, p.state) and torch.equal(u.halves, p.halves)
 
 
-def test_sharded_over_two_cards(cuda_device):
-    """On a machine with two cards: one shard on each, equal to the
-    unsharded group (each card gets the kernel's shared-memory attribute
-    at its own launches)."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA devices")
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_sharded_over_two_cards(cuda_device, n_cards):
+    """On a machine with ``n_cards`` cards: one shard on each, each
+    shard's tensors on its own card, every card launching the kernel, and
+    the group equal to the unsharded one (each card gets the kernel's
+    shared-memory attribute at its own launches)."""
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} CUDA devices")
     m = _long_chain()  # lists above 48 KB: the attribute matters
-    g, p = _mesh_pair(m, cuda_device, chain_mesh(n_devices=2), 2048)
-    assert [sh.device.index for sh in g.shards] == [0, 1]
+    g, p = _mesh_pair(m, cuda_device, chain_mesh(n_devices=n_cards), 2048)
+    before = dict(gibbs_cuda.gibbs_window.launches_by_device)
+    g.add_variants([m, m])
+    g.burn(3)
+    g.advance()
+    launched = {d: k - before.get(d, 0)
+                for d, k in gibbs_cuda.gibbs_window.launches_by_device.items()}
+    assert sorted(str(sh.device) for sh in g.shards) == [f"cuda:{i}" for i in range(n_cards)]
+    for sh in g.shards:
+        assert sh.state.device == sh.halves.device == sh.device
+        assert all(t.device == sh.device for t in g.kstack[sh.vi][sh.device].values())
+        assert launched[str(sh.device)] >= 2
+    p.add_variants([m, m])
+    p.burn(3)
+    p.advance()
+    _assert_shards_equal(g, p)
+
+
+def test_checkpoint_from_cards_resumes_on_one(cuda_device, tmp_path):
+    """A group sharded over every card (up to four) is saved, resumed on
+    one card and on a 1xN mesh, advanced: both equal the group that was
+    never saved."""
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    m = torch_models.build(port_pgm, "grid4_evid")
+    g, p = _mesh_pair(m, cuda_device, chain_mesh(n_devices=n), 1024 * n)
     for x in (g, p):
         x.add_variants([m, m])
-        x.burn(3)
+        x.burn(10)
         x.advance()
-    _assert_shards_equal(g, p)
+    path = str(tmp_path / "cards.npz")
+    save_checkpoint(path, g)
+    u, _ = load_checkpoint(path, m, device=cuda_device)
+    r, _ = load_checkpoint(path, m, device=cuda_device, make_group=lambda model, **kw:
+                           ShardedChainGroup(model, mesh=chain_mesh(n_devices=n, variant_ways=1),
+                                             **kw))
+    assert not isinstance(u, ShardedChainGroup) and u.cb == r.cb == g.cb
+    assert sorted(str(sh.device) for sh in r.shards) == [f"cuda:{i}" for i in range(n)]
+    for x in (g, p, u, r):
+        x.advance()
+    for x in (g, r):
+        _assert_shards_equal(x, p)
+    assert torch.equal(u.state, p.state) and torch.equal(u.halves, p.halves)
+    np.testing.assert_array_equal(u.totals, p.totals)
 
 
 # ---- the torch-ops route on the card -------------------------------------------

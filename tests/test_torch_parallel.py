@@ -87,6 +87,23 @@ def test_mesh_shape_rule_matches_reference(monkeypatch, n):
     assert mesh.shape == want and mesh.size == n
 
 
+@pytest.mark.parametrize("devices,n_devices,ranks,rank,want", [
+    (["cpu"] * 4, None, None, 0, ["cpu"]),  # a virtual mesh: one device
+    ([f"cuda:{i}" for i in range(4)], None, None, 0, [f"cuda:{i}" for i in range(4)]),
+    (["cuda:0"] * 4, None, [0, 1, 2, 3], 2, ["cuda:0"]),  # a rank per card, each its cuda:0
+    # two ranks that each see both cards, and a mesh of two: rank 0's alone
+    (["cuda:0", "cuda:1"] * 2, 2, [0, 0, 1, 1], 1, []),
+], ids=["virtual", "cards", "rank-per-card", "rank-owns-none"])
+def test_mesh_local_devices(monkeypatch, devices, n_devices, ranks, rank, want):
+    """This process's distinct devices, as the engine's ``device mesh:``
+    line names them (no CUDA call: a mesh only names its devices)."""
+    import grample_tpu_torch.parallel.distributed as port_distributed
+
+    monkeypatch.setattr(port_distributed, "rank", lambda: rank)
+    mesh = chain_mesh(n_devices=n_devices, devices=devices, ranks=ranks)
+    assert mesh.local_devices() == [torch.device(d) for d in want]
+
+
 def test_mesh_shapes():
     """``tests/test_parallel.py::test_mesh_shapes``."""
     mesh = chain_mesh(devices=["cpu"] * 2)
@@ -463,7 +480,7 @@ def test_adaptive_engine_under_mesh_vs_exact(tmp_path):
                        status_secs=1e-6, mesh="2x2", split_group="on")
     lines = []
     res = Engine(cfg, log=lines.append, devices=["cpu"] * 4).run()
-    assert "device mesh: {'variants': 2, 'chains': 2} over 4 devices" in lines
+    assert "device mesh: {'variants': 2, 'chains': 2} over 4 devices; this process: cpu" in lines
     assert not any("split group" in ln for ln in lines)  # ignored under a mesh
     adapts = [ln for ln in lines if ln.startswith("ADAPT: ")]
     assert len(adapts) == 5 and res.collapsed == list(range(9)) and res.variants == 11

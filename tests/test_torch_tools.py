@@ -330,6 +330,7 @@ def test_scaling_measure_on_a_virtual_mesh(tmp_path, n_dev):
     r = port_scaling.measure("grid3", str(tmp_path), n_dev, cpv_per_dev=16, cw=8, windows=3,
                              device="cpu")
     assert r["virtual"] and r["devices"] == n_dev and r["chains"] == 2 * 16 * n_dev
+    assert r["cards"] == ["cpu"]
     assert r["chains_per_device"] == 32 and r["samples"] == r["chains"] * 8 * 3 * 9
     assert set(r) >= {"net", "windows", "cw", "sweep_secs", "samples_per_sec",
                       "reduction_secs_per_tick", "reduction_share_per_tick", "device"}
