@@ -1,0 +1,6 @@
+"""The greatest ``torch.cuda.max_memory_allocated()`` over the cell's
+cards, from the start of the program's set-up, in GB (1e9 bytes)."""
+
+
+def read(rec):
+    return rec["peak_bytes"] / 1e9 if rec["peak_bytes"] else None
