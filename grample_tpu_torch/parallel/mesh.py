@@ -379,7 +379,9 @@ class ShardedChainGroup(ChainGroup):
 
     def flush(self) -> None:
         """Fold the pending window deltas into the host totals: one sum
-        of the local deltas, reduced over the mesh's processes once."""
+        of the local deltas, reduced over the mesh's processes once; the
+        reduced sum's site updates count under the tracer's
+        ``sites.folded``."""
         if not self._pending:
             return
         acc = np.zeros(self.totals.shape, dtype=np.int64)
@@ -387,7 +389,9 @@ class ShardedChainGroup(ChainGroup):
             for v0, d in delta:
                 acc[v0:v0 + d.shape[0]] += d.cpu().numpy()
         self._pending.clear()
-        self.totals += self._reduce(acc)
+        acc = self._reduce(acc)
+        self.tracer.add("sites.folded", acc[:, :self.caps.num_vars].sum())
+        self.totals += acc
 
     # ---- estimation ------------------------------------------------------
     def _rb_index_rows(self, states, slots, rest, strides) -> np.ndarray:

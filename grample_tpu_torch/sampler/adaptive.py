@@ -39,49 +39,58 @@ def adapt_step(
 ) -> List[int]:
     """Add up to ``new_chain_count`` collapsed variants to ``group`` (a
     ``ChainGroup`` or ``SplitChainGroup``).  Returns the collapsed variable
-    ids (possibly empty)."""
+    ids (possibly empty).  Its parts are spans of ``group.tracer``:
+    ``adapt.rank`` (merge, candidates, PSRF), ``adapt.collapse``,
+    ``adapt.place`` (warm start, encode, restack or slot writes) and, inside
+    it, ``adapt.burn``."""
     if group.num_variants >= group.max_variants:
         return []
     if group.num_chains < 2:
         raise ValueError("at least 2 chains required for adaptation")
 
     base = group.base
-    merged = group.merged_marginals()
-    collapsed_any = group.collapsed_any()
-    blankets = base.blankets()
-    candidates = [
-        v
-        for v in range(base.num_vars)
-        if base.fixed[v] < 0
-        and not collapsed_any[v]
-        and len(blankets[v]) > 1
-        and is_collapsible(base, v, blankets[v], oa_cap=group.collapse_oa_cap)
-    ]
-    if not candidates:
-        return []
+    tracer = group.tracer
+    with tracer.span("adapt.rank"):
+        merged = group.merged_marginals()
+        collapsed_any = group.collapsed_any()
+        blankets = base.blankets()
+        candidates = [
+            v
+            for v in range(base.num_vars)
+            if base.fixed[v] < 0
+            and not collapsed_any[v]
+            and len(blankets[v]) > 1
+            and is_collapsible(base, v, blankets[v], oa_cap=group.collapse_oa_cap)
+        ]
+        if not candidates:
+            return []
 
-    take = min(new_chain_count, group.max_variants - group.num_variants)
-    if len(candidates) <= take:
-        targets = candidates
-    else:
-        psrf = group.convergence(measure=measure, merged=merged)
-        if policy == "worst":
-            order = sorted(candidates, key=lambda v: -psrf[v])
-        elif policy == "ref-tail":
-            order = sorted(candidates, key=lambda v: psrf[v])
+        take = min(new_chain_count, group.max_variants - group.num_variants)
+        if len(candidates) <= take:
+            targets = candidates
         else:
-            raise ValueError(f"unknown adapt policy {policy!r}")
-        targets = order[:take]
+            psrf = group.convergence(measure=measure, merged=merged)
+            if policy == "worst":
+                order = sorted(candidates, key=lambda v: -psrf[v])
+            elif policy == "ref-tail":
+                order = sorted(candidates, key=lambda v: psrf[v])
+            else:
+                raise ValueError(f"unknown adapt policy {policy!r}")
+            targets = order[:take]
 
-    warm = None
-    donor = None
-    if warm_start:
-        if group.adapt_init == "transplant":
-            donor = group.plain_slot_states()
-        if donor is None:
-            warm = norm_marginals(merged, base.cards)
+    with tracer.span("adapt.collapse"):
+        variants = [collapse_var(base, var)[0] for var in targets]
 
-    variants = [collapse_var(base, var)[0] for var in targets]
-    group.add_variants(variants, burn_sweeps=ADAPT_BURN_SWEEPS,
-                       warm_marginals=warm, init_states=donor)
+    # the placement's own time is the span's self time: its adapt.burn
+    # child (``add_variants``' burn of the new slots) is timed apart
+    with tracer.span("adapt.place"):
+        warm = None
+        donor = None
+        if warm_start:
+            if group.adapt_init == "transplant":
+                donor = group.plain_slot_states()
+            if donor is None:
+                warm = norm_marginals(merged, base.cards)
+        group.add_variants(variants, burn_sweeps=ADAPT_BURN_SWEEPS,
+                           warm_marginals=warm, init_states=donor)
     return list(targets)

@@ -62,6 +62,7 @@ from grample_tpu_torch.pgm.encode import (
     stack_variants,
 )
 from grample_tpu_torch.sampler.collapse import collapse_conditional
+from grample_tpu_torch.tracing import Tracer
 
 MAX_VARIANTS = 128  # reference ConvergenceSampler.MaxChains (adaptive.go:49)
 
@@ -114,6 +115,10 @@ class ChainGroup:
     #: the merged estimate re-equilibrates them (reference ``:144-148``)
     adapt_init = "redraw"
 
+    #: the tracer counter of the site updates this group claims
+    #: (``advance``); a split group's aux group counts under ``sites.aux``
+    sites_counter = "sites.main"
+
     #: device tensors, built by ``_place`` at the first restack
     kstack = None  # kernel-order sweep tensors [Ncap, ...]
     state = None  # [Ncap, C, V+1] int32
@@ -139,6 +144,8 @@ class ChainGroup:
         self.cw = int(converge_window)
         self.seed = int(seed)
         self.max_variants = max_variants
+        #: spans and counters; the engine puts its run's tracer here
+        self.tracer = Tracer()
         # collapse headroom sizes the caps for max_variants collapse
         # variants with two spare factor slots per var; plain groups never
         # mutate the factor graph and get none (reference ``:170-180``)
@@ -404,7 +411,8 @@ class ChainGroup:
             slots, None if restack else stack_variants(new_encs), st)
         self.totals[slots] = 0.0
         if burn_sweeps > 0:
-            self.burn(burn_sweeps)
+            with self.tracer.span("adapt.burn"):  # the new slots' burn (adapt_step's)
+                self.burn(burn_sweeps)
         return slots
 
     # ---- advancing -------------------------------------------------------
@@ -491,6 +499,7 @@ class ChainGroup:
             int(mv.free_mask.sum()) for mv in self.variants
         )
         self.total_samples += taken
+        self.tracer.add(self.sites_counter, taken)
         if not defer:
             self.flush()
         return taken
@@ -506,9 +515,12 @@ class ChainGroup:
         return self.halves.sum(dim=(1, 2))  # [Ncap, V+1, K] int64
 
     def _fold(self, delta, nact: int) -> None:
-        """Add one ``_window_delta`` of ``nact`` active slots to ``totals``."""
+        """Add one ``_window_delta`` of ``nact`` active slots to ``totals``,
+        counting its site updates (real vars, every outcome) under the
+        tracer's ``sites.folded``."""
         d = delta.cpu().numpy().astype(np.float64)
         d[nact:] = 0.0
+        self.tracer.add("sites.folded", d[:, :self.caps.num_vars].sum())  # exact below 2**53
         self.totals += d
 
     def restore_device_state(self, state, halves):

@@ -74,6 +74,7 @@ from grample_tpu_torch.sampler.adaptive import adapt_step
 from grample_tpu_torch.sampler.chains import MAX_VARIANTS, ChainGroup
 from grample_tpu_torch.sampler.collapse import collapse_var, pick_random_collapsible
 from grample_tpu_torch.sampler.split import SplitChainGroup
+from grample_tpu_torch.tracing import Tracer, clock
 from grample_tpu_torch.uai import load_model, read_mar_file
 
 #: Max seconds of batched device work per engine tick (see the nwin
@@ -165,10 +166,24 @@ class RunResult:
     score_vs_merlin: Optional[ErrorSuite] = None
     convergence: Optional[Dict[str, np.ndarray]] = None
     samples_per_sec: float = 0.0
-    aux_secs: float = 0.0  # split execution: wall spent on the aux group
+    aux_secs: float = 0.0  # split execution: the ``tick.aux`` spans' total
     # throughput path on the kernel route (the CUDA kernel on a card, its
     # plain version on the CPU), not the torch-ops route
     kernel: bool = False
+    # the run's tracer (``grample_tpu_torch.tracing``): per span name
+    # {n, total_s, self_s, max_s}; its counters (``sites.main``,
+    # ``sites.aux``: the site updates each group claims, this process's
+    # run; ``sites.folded``: those that reached the host totals); its raw
+    # events
+    spans: Dict[str, dict] = dataclasses.field(default_factory=dict)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    events: list = dataclasses.field(default_factory=list)
+    # the sampling clock's anchor, in ns on the tracer's clock
+    # (``perf_counter_ns``), and the unix clock's lead over it (read at
+    # the first sync): ``clock_start + wall_offset_ns`` is the anchor on
+    # the unix clock of a ``torch.profiler`` trace
+    clock_start: int = 0
+    wall_offset_ns: int = 0
 
 
 class Engine:
@@ -233,8 +248,11 @@ class Engine:
 
     def _run(self) -> RunResult:
         cfg = self.cfg
-        t_start = time.time()
+        tr = Tracer()
+        setup = tr.span("setup")  # ends at the sampling clock's anchor
+        t_start = setup.start_ns / 1e9
 
+        load = tr.span("setup.load")
         self.log(f"Reading model from {cfg.model_path}")
         model = load_model(cfg.model_path, use_evidence=cfg.use_evidence)
         v = model.num_vars
@@ -251,6 +269,7 @@ class Engine:
             mer_path = cfg.model_path + ".merlin.MAR"
             if os.path.exists(mer_path):
                 merlin = pad_marginals(read_mar_file(mer_path), model.cards)
+        load.end()
 
         # ---- derived defaults (reference cmd/root.go:344-363) ----------
         seed = int(self._agreed([cfg.resolve_seed()])[0])
@@ -273,11 +292,14 @@ class Engine:
 
         adaptive = cfg.sampler == "adaptive"
         prior_runtime = 0.0
-        if cfg.resume and cfg.checkpoint_path and self._agreed(
-                [os.path.exists(cfg.checkpoint_path)])[0]:
+        resume = cfg.resume and cfg.checkpoint_path and self._agreed(
+            [os.path.exists(cfg.checkpoint_path)])[0]
+        build = tr.span("setup.build")
+        if resume:
             group, meta = checkpoint.load_checkpoint(
                 cfg.checkpoint_path, model, make_group=self._resume_factory(cfg),
                 device=cfg.device)
+            group.tracer = tr
             cw_sweeps = group.cw
             prior_runtime = float(meta.get("runtime", 0.0))
             self.log(
@@ -285,16 +307,10 @@ class Engine:
                 f"chains, {group.total_samples:,} samples, "
                 f"{group.total_sweeps} sweeps, {prior_runtime:.1f}s spent"
             )
-            self._log_route(group)
-            group.warmup()  # first launch off the budget clock
-            if adaptive and isinstance(group, SplitChainGroup) \
-                    and prior_runtime < cfg.max_secs / 2:
-                # the aux group is still to be built when the snapshot
-                # predates the first collapse: build it here, as a fresh
-                # run does, not on the clock at the first adapt step
-                group.prewarm_aux()
-                self._log_aux(group)
-            t_clock = t_start if cfg.budget == "wall" else time.time()
+            # the aux group is still to be built when the snapshot predates
+            # the first collapse: build it before the clock, as a fresh run
+            # does, not on the clock at the first adapt step
+            prewarm = prior_runtime < cfg.max_secs / 2
         else:
             variants = [model] * n_slots
             caps = None
@@ -306,6 +322,7 @@ class Engine:
                 converge_window=cw_sweeps, seed=seed, caps=caps,
                 collapse_headroom=adaptive, rb_mixture=cfg.rb_mixture,
             )
+            group.tracer = tr
             self.log(f"Creating chains and performing burn-in ({burn_sweeps} sweeps)")
             reserve = max(n_slots, cfg.reserve_slots)
             if adaptive and cfg.reserve_slots == 0:
@@ -314,14 +331,22 @@ class Engine:
                 reserve = max(reserve, self._auto_reserve(cfg, group))
             group.reserve(reserve)
             group.add_variants(variants)
-            self._log_route(group)
+            prewarm = True
+        self._log_route(group)
+        build.end()
+        with tr.span("setup.warmup"):
             group.warmup()  # wall mode: the first launch runs ON the clock
-            if adaptive and isinstance(group, SplitChainGroup):
-                # the aux group's build and first launch, before the
-                # sampling clock anchors (wall mode keeps it on the clock)
+        tr.calibrate()
+        if adaptive and isinstance(group, SplitChainGroup) and prewarm:
+            # the aux group's build and first launch, before the sampling
+            # clock anchors (wall mode keeps it on the clock)
+            with tr.span("setup.aux"):
                 group.prewarm_aux()
                 self._log_aux(group)
-            t_clock = t_start if cfg.budget == "wall" else time.time()
+        setup.end()
+        clock_start = setup.end_ns if cfg.budget == "sampling" else setup.start_ns
+        t_clock = clock_start / 1e9
+        if not resume:
             if cfg.anneal_stages > 0:
                 group.burn_annealed(burn_sweeps, cfg.anneal_stages)
             else:
@@ -353,16 +378,19 @@ class Engine:
         win_time = None  # EMA: measured seconds per counted window
         nwin = 1
         while keep_working:
+            tr.tick += 1
+            tick_span = tr.span("tick")
             # Launch a BATCH of windows with deferred count deltas (no host
             # sync between windows), sized so one batch ≈ the status
             # cadence (the reference's ~5 s scoring loop,
             # cmd/root.go:498-539).
-            t_w0 = time.time()
-            for _ in range(nwin):
-                group.advance(cw_sweeps, defer=True)
-            group.flush()
-            now = time.time()
-            dt = (now - t_w0) / nwin
+            with tr.span("tick.launch") as launch:
+                for _ in range(nwin):
+                    group.advance(cw_sweeps, defer=True)
+            with tr.span("tick.flush"):
+                group.flush()
+            now = clock()
+            dt = (now - launch.start_ns / 1e9) / nwin
             win_time = dt if win_time is None else 0.5 * win_time + 0.5 * dt
             # Every decision read from a clock is rank 0's: the ranks act on
             # its readings, never on their own (one broadcast a tick).  The
@@ -387,7 +415,8 @@ class Engine:
 
             # RB mixture snapshot: one per tick; ticks are a window or more
             # apart, so chain states are decorrelated between snapshots
-            group.rb_accumulate()
+            with tr.span("tick.rb"):
+                group.rb_accumulate()
 
             if status_due or not keep_working or cfg.experiment:
                 if status_due or not keep_working:
@@ -412,7 +441,7 @@ class Engine:
                     self.monitor.update(
                         iterations=group.total_samples, runtime=now - t_start,
                         chains=group.num_chains, variants=group.num_variants,
-                        **(_score_vars(score) if score else {}),
+                        **(_score_vars(score) if score else {}), **tr.counters,
                     )
                 if status_due:
                     next_status = now + cfg.status_secs
@@ -421,15 +450,15 @@ class Engine:
                 self.log("STOPPING ADAPTATION")
                 keep_adapting = False
             if keep_working and keep_adapting:
-                t_adapt = time.time()
-                added = adapt_step(group, cfg.chain_adds, measure=cfg.measure,
-                                   policy=cfg.adapt_policy, warm_start=cfg.warm_start)
+                with tr.span("tick.adapt") as step:
+                    added = adapt_step(group, cfg.chain_adds, measure=cfg.measure,
+                                       policy=cfg.adapt_policy, warm_start=cfg.warm_start)
                 if added:
                     # an adapt step's host work (collapse, encode, stacking,
                     # the new slots' burn) costs the reference milliseconds
                     # (cmd/root.go:542-547): under --budget sampling the
                     # clock is extended by its time beyond 0.5 s
-                    dt = time.time() - t_adapt
+                    dt = step.seconds
                     comp = min(comp_left, max(0.0, dt - 0.5))
                     comp_left -= comp
                     stop_time += comp
@@ -441,11 +470,12 @@ class Engine:
                     self._log_route(group)  # grown caps may leave the kernel's gate
 
             if checkpoint_due:
-                self.save_checkpoint(group, prior_runtime + (time.time() - t_clock))
-                next_checkpoint = time.time() + cfg.checkpoint_secs
+                self.save_checkpoint(group, prior_runtime + (clock() - t_clock))
+                next_checkpoint = clock() + cfg.checkpoint_secs
+            tick_span.end()
 
         # ---- final ------------------------------------------------------
-        runtime = float(self._agreed([time.time() - t_clock])[0])
+        runtime = float(self._agreed([clock() - t_clock])[0])
         if isinstance(group, SplitChainGroup) and group.aux_ticks:
             self.log(
                 f"aux group: {self._aux_shape(group)}: {group.aux_ticks} ticks, "
@@ -466,8 +496,13 @@ class Engine:
             variants=group.num_variants,
             collapsed=sorted(int(x) for x in np.nonzero(group.collapsed_any())[0]),
             samples_per_sec=group.total_samples / max(runtime, 1e-9),
-            aux_secs=float(getattr(group, "aux_secs", 0.0)),
+            aux_secs=tr.total("tick.aux"),
             kernel=group.route == "kernel",
+            spans=tr.spans(),
+            counters=dict(tr.counters),
+            events=tr.events,
+            clock_start=clock_start,
+            wall_offset_ns=tr.wall_offset_ns,
         )
 
         if solution is not None:
@@ -622,6 +657,8 @@ class Engine:
                     "samples_per_sec": result.samples_per_sec,
                     "aux_secs": result.aux_secs,
                     "kernel": result.kernel,
+                    "spans": result.spans,
+                    "counters": result.counters,
                     "final_score": result.final_score.as_dict() if result.final_score else None,
                 }
             )

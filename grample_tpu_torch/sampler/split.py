@@ -57,7 +57,6 @@ import hashlib
 import json
 import os
 import tempfile
-import time
 import warnings
 from typing import List, Optional
 
@@ -277,11 +276,6 @@ class SplitChainGroup:
         self._max_variants = max_variants
         self.rb_mixture = bool(rb_mixture)
         self.aux_cpv = min(int(aux_chains), self.cpv)
-        #: wall seconds, ticks and sweeps of aux advance (the split
-        #: design's overhead, reported in run results and logs)
-        self.aux_secs = 0.0
-        self.aux_ticks = 0
-        self.aux_tick_sweeps = 0
         self.main = _main or ChainGroup(
             base_model,
             chains_per_variant=chains_per_variant,
@@ -291,17 +285,57 @@ class SplitChainGroup:
             rb_mixture=rb_mixture,
         )
         self.aux: Optional[ChainGroup] = _aux
+        if _aux is not None:
+            self._adopt(_aux)
         self._aux_sweeps = AUX_TICK_SWEEPS
         #: the adapt candidate bound of the aux tier built (None until the
         #: aux build picks a tier): ``PAL_AUX_OA_LIM`` on the wide tier
         self._aux_oa_cap: Optional[int] = None
         if _aux is not None and _aux.cpv > AUX_CHAINS:
             self._aux_oa_cap = PAL_AUX_OA_LIM
-        #: host seconds of the wide spec at the aux build (None where this
-        #: group did not look for one: a CPU device, an aux group restored
-        #: from a snapshot), and whether it came from the on-disk cache
-        self.aux_spec_secs: Optional[float] = None
+        #: whether the wide spec of the aux build came from the on-disk cache
         self.aux_spec_cached = False
+
+    # ---- the tracer ------------------------------------------------------
+    @property
+    def tracer(self):
+        """The tracer of both groups (``ChainGroup.tracer``)."""
+        return self.main.tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        self.main.tracer = tracer
+        if self.aux is not None:
+            self.aux.tracer = tracer
+
+    def _adopt(self, aux: ChainGroup) -> None:
+        """Make ``aux`` record into this group's tracer, its claimed site
+        updates under ``sites.aux``."""
+        aux.tracer = self.tracer
+        aux.sites_counter = "sites.aux"
+
+    @property
+    def aux_secs(self) -> float:
+        """Seconds of aux advance (``tick.aux`` spans, each ending in the
+        aux window's flush): the split design's overhead."""
+        return self.tracer.total("tick.aux")
+
+    @property
+    def aux_ticks(self) -> int:
+        return self.tracer.count("tick.aux")
+
+    @property
+    def aux_tick_sweeps(self) -> int:
+        return self.tracer.counters.get("aux.sweeps", 0)
+
+    @property
+    def aux_spec_secs(self) -> Optional[float]:
+        """Host seconds of the wide spec at the aux build (the
+        ``setup.aux.spec`` span); None where this group did not look for
+        one: a CPU device, an aux group restored from a snapshot."""
+        if not self.tracer.count("setup.aux.spec"):
+            return None
+        return self.tracer.total("setup.aux.spec")
 
     # ---- aggregate views -------------------------------------------------
     @property
@@ -372,9 +406,8 @@ class SplitChainGroup:
         (reference ``:386-415``), else on the narrow one."""
         spec = None
         if wide_tier_device(self.device):
-            t0 = time.perf_counter()
-            spec, self.aux_spec_cached = pooled_spec(self.base)
-            self.aux_spec_secs = time.perf_counter() - t0
+            with self.tracer.span("setup.aux.spec"):
+                spec, self.aux_spec_cached = pooled_spec(self.base)
         if spec is None:
             return self._build_aux_legacy()
         aux = ChainGroup(
@@ -409,6 +442,7 @@ class SplitChainGroup:
     def _ensure_aux(self) -> ChainGroup:
         if self.aux is None:
             aux = self._build_aux()
+            self._adopt(aux)
             aux.warmup()
             self.aux = aux
         return self.aux
@@ -473,14 +507,11 @@ class SplitChainGroup:
         if self.aux is None or self.aux.num_variants == 0:
             return 0
         sweeps = min(self.cw, self._aux_sweeps)
-        t0 = time.time()
-        taken = self.aux.advance(sweeps)  # flushes: the wall time is the device's
-        dt = time.time() - t0
-        self.aux_secs += dt
-        self.aux_ticks += 1
-        self.aux_tick_sweeps += sweeps
+        with self.tracer.span("tick.aux") as sp:
+            taken = self.aux.advance(sweeps)  # flushes: the span's time is the device's
+        self.tracer.add("aux.sweeps", sweeps)
         # size the next aux advance to the tick budget from the measured rate
-        rate = sweeps / max(dt, 1e-6)
+        rate = sweeps / max(sp.seconds, 1e-6)
         self._aux_sweeps = max(
             AUX_TICK_SWEEPS, min(self.cw, int(AUX_TICK_BUDGET_SECS * rate)))
         return taken

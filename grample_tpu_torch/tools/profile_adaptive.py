@@ -1,18 +1,23 @@
-"""Per-component profile of an adaptive tick.
+"""Where an adaptive run's ticks spend their time, from the engine's tracer.
 
 Counterpart of ``grample_tpu.tools.profile_adaptive``.  An adaptive run
-spends host time between its windows: the flush of the count deltas,
-the RB snapshot, the merge, and the adapt step itself (collapse, encode,
-restack or slot write, the new slots' burn).  This tool runs the adaptive
-engine loop shape by hand on one full-width ``ChainGroup`` and
-wall-times each component:
+spends host time between its windows: the flush of the count deltas (and,
+in a split group, the aux tick), the RB snapshot, the status tick and the
+adapt step itself (ranking, collapse, placement, the new slots' burn).
+This tool runs the engine with ``-s adaptive`` on the net, as the CLI
+does (the split group where the engine picks it), and prints the totals
+of its ``tick.*`` and ``adapt.*`` spans and their shares of the tick
+time:
 
     python -m grample_tpu_torch.tools.profile_adaptive --net Grids_13 --secs 60 [--device cuda]
 
-``advance`` is the time to *launch* a tick's windows (they run
+``tick.launch`` is the time to *enqueue* a tick's windows (they run
 asynchronously on a GPU); the device time they take shows up in
-``flush``, the tick's first sync.  Left out against the JAX package's
-tool: the ``use_pallas`` column (the port has one sweep per device type).
+``tick.flush``, the tick's first sync.  ``tick.aux`` lies inside
+``tick.flush``, ``adapt.*`` inside ``tick.adapt`` and ``adapt.burn``
+inside ``adapt.place``; ``tick.other`` is the tick's own time outside
+its launch, flush, RB snapshot and adapt step (clock decisions, the
+status tick, a checkpoint).
 """
 
 from __future__ import annotations
@@ -21,60 +26,41 @@ import argparse
 import json
 import os
 import sys
-import time
 
-from grample_tpu_torch.sampler.adaptive import adapt_step
-from grample_tpu_torch.sampler.chains import ChainGroup
+from grample_tpu_torch.sampler.engine import Engine, EngineConfig
 from grample_tpu_torch.uai import load_model
 
+#: the tick's direct children, whose shares with ``tick.other`` sum to 1
+TICK_PARTS = ("tick.launch", "tick.flush", "tick.rb", "tick.adapt")
+#: spans nested deeper, reported beside them
+NESTED = ("tick.aux", "adapt.rank", "adapt.collapse", "adapt.place", "adapt.burn")
 
-def profile(m, secs: float, chains: int, cw: int, nwin: int, adds: int,
-            device: str = "cuda", burn: int = 2000, max_ticks: int = 0) -> dict:
-    """Run adaptive ticks on model ``m`` for ``secs`` seconds (or
-    ``max_ticks`` ticks) and return seconds and shares per component."""
-    g = ChainGroup(m, chains_per_variant=chains, converge_window=cw, device=device,
-                   seed=1, collapse_headroom=True)
-    g.reserve(g.max_variants)  # the engine's auto-reserve (small nets)
-    g.add_variant(m)
-    g.add_variant(m)
-    g.warmup()
-    g.burn_annealed(burn)
 
-    t = {k: 0.0 for k in ("advance", "flush", "rb", "merged", "adapt")}
-    n_ticks = 0
-    t_end = time.time() + secs
-    t_loop0 = time.time()
-    while time.time() < t_end and not (max_ticks and n_ticks >= max_ticks):
-        t0 = time.time()
-        for _ in range(nwin):
-            g.advance(cw, defer=True)
-        t["advance"] += time.time() - t0
-        t0 = time.time()
-        g.flush()
-        t["flush"] += time.time() - t0
-        t0 = time.time()
-        g.rb_accumulate()
-        t["rb"] += time.time() - t0
-        t0 = time.time()
-        g.merged_marginals()
-        t["merged"] += time.time() - t0
-        t0 = time.time()
-        if g.num_variants < g.max_variants:
-            adapt_step(g, adds)
-        t["adapt"] += time.time() - t0
-        n_ticks += 1
-    t["other"] = (time.time() - t_loop0) - sum(t.values())
-
-    total = sum(t.values())
+def profile(path: str, secs: float, chains: int, cw: int, adds: int,
+            device: str = "cuda", burn: int = 2000, seed: int = 1) -> dict:
+    """Run ``-s adaptive`` on the net at ``path`` for ``secs`` seconds of
+    sampling clock; seconds and shares of the tick time per span."""
+    v = load_model(path).num_vars
+    cfg = EngineConfig(model_path=path, device=device,
+                       use_evidence=os.path.exists(path + ".evid"), sampler="adaptive",
+                       chains=2, chains_per_variant=chains, chain_adds=adds,
+                       burnin=burn * v, converge_window=cw * v, max_secs=secs, seed=seed)
+    res = Engine(cfg, log=lambda line: None).run()
+    spans = res.spans
+    secs_of = {name: spans.get(name, {}).get("total_s", 0.0) for name in TICK_PARTS + NESTED}
+    tick = spans.get("tick", {"n": 0, "total_s": 0.0, "self_s": 0.0})
+    secs_of["tick.other"] = tick["self_s"]
     return {
-        "ticks": n_ticks,
-        "variants": g.num_variants,
-        "chains": g.num_chains,
-        "samples": g.total_samples,
-        "samples_per_sec": round(g.total_samples / max(total, 1e-9), 1),
-        "device": str(g.device),
-        **{f"secs_{k}": round(v, 2) for k, v in t.items()},
-        **{f"share_{k}": round(v / max(total, 1e-9), 4) for k, v in t.items()},
+        "ticks": tick["n"],
+        "variants": res.variants,
+        "chains": res.chains,
+        "samples": res.samples,
+        "runtime": res.runtime,
+        "samples_per_sec": round(res.samples_per_sec, 1),
+        "device": device,
+        "secs_tick": tick["total_s"],
+        **{f"secs_{k}": round(s, 4) for k, s in secs_of.items()},
+        **{f"share_{k}": round(s / max(tick["total_s"], 1e-9), 4) for k, s in secs_of.items()},
     }
 
 
@@ -83,11 +69,9 @@ def main(argv=None) -> int:
     ap.add_argument("--res", default=os.environ.get("GRAMPLE_RES", "res"))
     ap.add_argument("--net", default="Grids_13")
     ap.add_argument("--secs", type=float, default=60.0)
-    ap.add_argument("--chains", type=int, default=1024)
-    ap.add_argument("--cw", type=int, default=2000)
-    ap.add_argument("--nwin", type=int, default=4,
-                    help="windows per tick (the engine batches ~status_secs)")
-    ap.add_argument("--adds", type=int, default=4)
+    ap.add_argument("--chains", type=int, default=1024, help="chains per variant")
+    ap.add_argument("--cw", type=int, default=2000, help="convergence window, sweeps")
+    ap.add_argument("--adds", type=int, default=4, help="collapse variants per adapt step")
     ap.add_argument("--device", default="cuda",
                     help="torch device the chains run on (cuda, cuda:N or cpu)")
     ap.add_argument("--out", default="")
@@ -98,9 +82,8 @@ def main(argv=None) -> int:
         print(f"net {args.net!r} not found under {args.res!r}: pass --res or set "
               "GRAMPLE_RES", file=sys.stderr)
         return 1
-    m = load_model(path, use_evidence=os.path.exists(path + ".evid"))
-    out = {"net": args.net, **profile(m, args.secs, args.chains, args.cw, args.nwin,
-                                      args.adds, args.device)}
+    out = {"net": args.net, **profile(path, args.secs, args.chains, args.cw, args.adds,
+                                      args.device)}
     print(json.dumps(out))
     if args.out:
         with open(args.out, "a") as fh:

@@ -620,3 +620,46 @@ def test_bench_throughput_leg_on_card(cuda_device, tmp_path, monkeypatch):
     assert out["route"] == "kernel" and out["device_samples_per_sec"] > 0
     assert gibbs_cuda.gibbs_window.launches > before and sum(out["launches_by_form"].values()) > 0
     assert out["device"] == card_line() and out["est_ops_per_site"] == 40
+
+
+def test_flush_spans_end_with_their_ticks_kernels(cuda_device, tmp_path):
+    """Under ``torch.profiler`` with CUDA activity, an engine run at the
+    benchmark grid cell's shape (2 x 131072 chains, 2000-sweep windows):
+    on the profiler's absolute clock (the tracer's times plus
+    ``RunResult.wall_offset_ns``: kineto's timestamps are unix time), each
+    ``tick.flush`` span ends after the last Gibbs kernel of its tick, and
+    within 2 ms of the tick's last device operation (the copy of its last
+    window's counts).  The torch ops of a window that follow its kernel (the
+    count map, the delta's sum) take a few ms of their own.  Prints the
+    offsets."""
+    from grample_tpu_torch.sampler.engine import Engine, EngineConfig
+    from grample_tpu_torch.uai.writer import write_model
+
+    path = str(tmp_path / "grid10.uai")
+    with open(path, "w") as fh:
+        fh.write(write_model(torch_models.grid(port_pgm, 10, seed=1)))
+    cfg = EngineConfig(model_path=path, device="cuda", burnin=100 * 100,
+                       converge_window=2000 * 100, chains=2, chains_per_variant=131072,
+                       max_secs=8.0, seed=3, status_secs=2.0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = Engine(cfg, log=lambda line: None).run()
+    ops = [(e.start_ns(), e.start_ns() + e.duration_ns(), "gibbs_window" in e.name())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    ticks = {}
+    for e in res.events:
+        if e.name in ("tick.launch", "tick.flush"):
+            ticks.setdefault(e.tick, {})[e.name] = (e.start_ns + res.wall_offset_ns,
+                                                    e.end_ns + res.wall_offset_ns)
+    slack = 2_000_000  # the profiler's own conversion of device time drifts by about 1 ms
+    gibbs, last_op = [], []
+    for t in sorted(ticks):
+        launch, flush = ticks[t]["tick.launch"], ticks[t]["tick.flush"]
+        mine = [(b, g) for a, b, g in ops if launch[0] - slack <= a <= flush[1]]
+        assert any(g for _, g in mine), (t, launch, flush)
+        gibbs.append(flush[1] - max(b for b, g in mine if g))
+        last_op.append(flush[1] - max(b for b, _ in mine))
+    print(f"tick.flush end - last Gibbs kernel end, ns, by tick: {gibbs}; - last device "
+          f"operation end: {last_op}; unix clock - tracer clock: {res.wall_offset_ns} ns")
+    assert len(gibbs) >= 2 and all(d > 0 for d in gibbs), gibbs
+    assert all(-slack // 2 <= d <= 2_000_000 for d in last_op), last_op
