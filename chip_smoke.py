@@ -533,9 +533,10 @@ def describe_launch(torch, kst, chains, count, label, sites=None, plan=None):
     """Print the live work of ``kst`` per variant and the launch shape the
     wrapper gives ``chains`` chains of it (or ``plan``); returns the plan."""
     from grample_tpu_torch.ops import gibbs_cuda
-    from grample_tpu_torch.ops.layout import compact_counts
+    from grample_tpu_torch.ops.layout import compact_counts, walk_counts
 
     live = compact_counts(kst["c_lists"].cpu().numpy())
+    walk = walk_counts(kst["c_lists"].cpu().numpy())
     n, nc, g, k = kst["k_kmask"].shape
     f, s = kst["k_scope"].shape[3:]
     fg = kst["gb_offset"].shape[3]
@@ -543,13 +544,16 @@ def describe_launch(torch, kst, chains, count, label, sites=None, plan=None):
     plan = plan or gibbs_cuda.plan_launch(kst, chains, count, sms, sites)
     occ = gibbs_cuda.occupancy(k, plan)
     per = lambda col: f"{live[:, col].min()}-{live[:, col].max()}"  # noqa: E731
+    wper = lambda col: f"{walk[:, col].min()}-{walk[:, col].max()}"  # noqa: E731
     bank = (f", live gather incidences {per(5)} of {nc * g * fg}, live gather scope entries "
             f"{per(6)} of {nc * g * fg * s} (flat table {kst['tables'][0].numel() * 4} bytes)"
             if fg else "")
     print(f"launch, {label}: per variant live rows {per(0)} of {nc * g} slots, state rows "
           f"kept {per(1)} of {kst['pal_oon'].shape[1]}, live incidences {per(2)} of "
-          f"{nc * g * f}, live scope entries {per(3)} of {nc * g * f * s}{bank}, compact tables "
-          f"{live[:, 4].min() * 4}-{live[:, 4].max() * 4} bytes (dense "
+          f"{nc * g * f}, live scope entries {per(3)} of {nc * g * f * s}{bank}; walked "
+          f"incidences {wper(0)}, scope entries {wper(1)}, sites on merged tables {wper(3)}; "
+          f"compact tables {walk[:, 2].min() * 4}-{walk[:, 2].max() * 4} bytes (unmerged "
+          f"{live[:, 4].min() * 4}-{live[:, 4].max() * 4}, dense "
           f"{kst['k_tables'][0].numel() * 4}); {gibbs_cuda.form_name(plan)}, "
           f"{plan.threads} threads "
           f"per block, {n * -(-chains // (plan.threads // 32 if plan.sites else plan.threads))} "

@@ -27,6 +27,14 @@
 //    Skipping a dead incidence is exact (its table row is all 0.0f and
 //    x + 0.0f == x); dead rows are neither drawn nor counted nor written
 //    (their counts stay 0, their state stays as given: 0 in every caller).
+//  - Most sites walk one merged incidence in those lists: its scope is
+//    the site's Markov blanket and its table holds, per blanket
+//    configuration, the sum of the site's incidences' rows, added from
+//    0.0f in f order at layout time as this walk would add them, so
+//    0.0f + that row is the sum the unmerged walk makes, bit for bit.
+//    Nothing here tells the two apart: a merged site is a site with one
+//    incidence, and a grid site walks 1 incidence where it walked 4.6.
+//    The header's H_WALK_FLOATS is the table floats the lists hold.
 //  - A block copies its variant's lists, and the tables when they fit,
 //    into shared memory once per window with 16-byte cp.async copies, and
 //    every thread reuses them for all sweeps.  What does not fit stays in
@@ -88,9 +96,9 @@ constexpr float kFloor = 1e-6f;
 constexpr float kInv24 = 5.9604644775390625e-8f;  // 2^-24
 
 // c_lists header words (ops/layout.py H_*)
-constexpr int H_SITES = 0, H_ROWS = 1, H_TABLE_FLOATS = 4, H_OFF_COLOR = 5,
-              H_OFF_SITES = 6, H_OFF_INCS = 7, H_OFF_SCOPE = 8, H_WORDS = 9,
-              H_OFF_GSITES = 12, H_OFF_GINCS = 13, H_OFF_GSCOPE = 14;
+constexpr int H_SITES = 0, H_ROWS = 1, H_OFF_COLOR = 5, H_OFF_SITES = 6, H_OFF_INCS = 7,
+              H_OFF_SCOPE = 8, H_WORDS = 9, H_OFF_GSITES = 12, H_OFF_GINCS = 13,
+              H_OFF_GSCOPE = 14, H_WALK_FLOATS = 18;
 
 // Threads a block of an instance may have: the gather form at card bound
 // 16 holds two 16-logit accumulators (ops/gibbs_cuda.py::max_threads).
@@ -159,7 +167,7 @@ __device__ __forceinline__ void stage_variant(const Params& p, int n, uint8_t*& 
   lists = p.c_lists + static_cast<size_t>(n) * p.lw;
   tabs = p.c_tables + static_cast<size_t>(n) * p.tw;
   if (p.stage_tables) {
-    stage(sp, tabs, (lists[H_TABLE_FLOATS] + 3) & ~3);
+    stage(sp, tabs, (lists[H_WALK_FLOATS] + 3) & ~3);
     tabs = reinterpret_cast<const float*>(sp);
     sp += static_cast<size_t>(p.tw) * 4;
   }

@@ -63,7 +63,7 @@ import functools
 import torch
 
 from grample_tpu_torch.ops import _build
-from grample_tpu_torch.ops.layout import COMPACT_KEYS, MAX_DENSE_ROWS
+from grample_tpu_torch.ops.layout import MAX_DENSE_ROWS
 
 #: H100 gives one block at most 227 KB of shared memory
 MAX_SMEM_BYTES = 232448
@@ -74,6 +74,8 @@ MAX_ROWS = MAX_DENSE_ROWS
 
 #: resident threads and shared memory of one SM, blocks it can hold
 SM_THREADS, SM_SMEM_BYTES, SM_BLOCKS = 2048, 233472, 32
+#: SMs of the H100 SXM, on which ``launch_shapes`` compares plans
+SM_COUNT = 132
 #: chains (warps) per block of the site-parallel form
 SITE_CHAINS = (4, 8, 16, 32)
 #: warps per SM below which a thread per chain leaves the card idle and
@@ -134,37 +136,64 @@ def _staging(fixed: int, list_bytes: int, table_bytes: int) -> tuple:
     return stage_lists, stage_lists and fixed + list_bytes + table_bytes <= MAX_SMEM_BYTES
 
 
+def _shapes(list_bytes: int, table_bytes: int, rows: int, k: int, gather: bool, sites: bool):
+    """(threads, staging, state bytes, resident blocks per SM) of every
+    block width of one form that fits, for padded lists and tables of
+    ``list_bytes`` and ``table_bytes`` and ``rows`` padded state rows."""
+    for threads in ([32 * w for w in SITE_CHAINS] if sites else THREAD_CHOICES):
+        if threads > max_threads(k, gather):
+            continue
+        sbytes = threads // 32 * rows if sites else state_bytes(rows, k, threads)
+        stage = _staging(sbytes, list_bytes, table_bytes)
+        smem = sbytes + list_bytes * stage[0] + table_bytes * stage[1]
+        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads, SM_BLOCKS)
+        if smem <= MAX_SMEM_BYTES and resident >= 1:
+            yield threads, stage, sbytes, resident
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_shapes(list_bytes: int, table_bytes: int, rows: int, k: int, gather: bool) -> tuple:
+    """The (form, threads, staging) of every plan ``plan_launch`` gives
+    for these padded sizes to a launch of 32 * 2^j chains in all
+    (j < 20, the form by its rule and each form asked for by name) on
+    ``SM_COUNT`` SMs: two sizes with the same shapes launch alike."""
+    out = []
+    for j in range(20):
+        for sites in (None, False, True):
+            plan = _plan(1, 32 << j, False, SM_COUNT, sites, list_bytes, table_bytes, rows, k,
+                         gather)
+            out.append(plan and (plan.sites, plan.threads, plan.stage_lists, plan.stage_tables))
+    return tuple(out)
+
+
 def plan_launch(kst: dict, c: int, count: bool, sm_count: int, sites=None) -> Plan:
     """The launch shape the module doc's rules give for ``c`` chains of
     each variant of ``kst``.  ``sites`` overrides the form rule (the smoke
     run and the tests hold each form against the plain version); a form
     that does not fit raises."""
-    n, list_bytes = kst["c_lists"].shape[0], kst["c_lists"].shape[1] * 4
-    table_bytes = kst["c_tables"].shape[1] * 4
-    rows, k = kst["c_rows"].shape[1], kst["k_kmask"].shape[3]
-    gather = uses_gather(kst)
+    rows = kst["c_rows"].shape[1]
+    plan = _plan(kst["c_lists"].shape[0], c, count, sm_count, sites, kst["c_lists"].shape[1] * 4,
+                 kst["c_tables"].shape[1] * 4, rows, kst["k_kmask"].shape[3], uses_gather(kst))
+    if plan is None:
+        raise ValueError(f"{rows} state rows exceed a block's shared memory")
+    return plan
+
+
+def _plan(n, c, count, sm_count, sites, list_bytes, table_bytes, rows, k, gather):
+    """``plan_launch`` from the sizes it reads; None where nothing fits."""
     if sites is None:
         sites = n * c <= sm_count * SITE_FORM_WARPS * 32
     best = None
-    for threads in ([32 * w for w in SITE_CHAINS] if sites else THREAD_CHOICES):
-        if threads > max_threads(k, gather):
-            continue
+    for threads, stage, sbytes, resident in _shapes(list_bytes, table_bytes, rows, k, gather,
+                                                    sites):
         chains = threads // 32 if sites else threads  # per block
-        sbytes = chains * rows if sites else state_bytes(rows, k, threads)
-        stage = _staging(sbytes, list_bytes, table_bytes)
-        smem = sbytes + list_bytes * stage[0] + table_bytes * stage[1]
-        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads, SM_BLOCKS)
-        if smem > MAX_SMEM_BYTES or resident < 1:
-            continue
         blocks = n * -(-c // chains)
         key = (min(blocks, resident * sm_count) * (threads // 32), min(blocks, sm_count),
                threads)
         if best is None or key > best[0]:
             best = (key, Plan(sites, threads, *stage, count, list_bytes, table_bytes, sbytes,
                               gather))
-    if best is None:
-        raise ValueError(f"{rows} state rows exceed a block's shared memory")
-    return best[1]
+    return best and best[1]
 
 
 @functools.lru_cache(maxsize=1)
@@ -206,7 +235,7 @@ def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,
     nvp, c = state.shape[1], state.shape[2]
     dev = state.device
     expect = {key: (kst[key], torch.float32 if key == "c_tables" else torch.int32,
-                    (n, kst[key].shape[-1])) for key in COMPACT_KEYS}
+                    (n, kst[key].shape[-1])) for key in ("c_lists", "c_tables", "c_rows")}
     expect["state"] = (state, torch.int32, (n, nvp, c))
     for name, (t, dtype, shape) in expect.items():
         if t.device != dev or not t.is_cuda:

@@ -75,6 +75,34 @@ of its site's card, which is what its stretch of the flat table covers.
 ``LW``, ``TW`` and ``RW`` are the largest need among the stacked
 variants, rounded up (``compact_capacity``), so a group's tensors keep one
 shape while variants come and go.
+
+**Merged tables.**  A site's dense incidences only ever build one sum,
+which depends on nothing but the state of its Markov blanket, and the
+tables are fixed for the life of an encoding.  So a live site may walk
+one *merged* incidence instead of its own: its scope is the site's
+blanket, the distinct rows of its live scope entries in first-seen order
+(evidence and tail rows like any other), with C-order mixed-radix strides
+over their cards; its table holds, for every blanket configuration, the
+float32 sum of the site's incidences' rows, from 0.0 and one add per
+incidence in ``f`` order (``fold_rows``: never a pairwise sum), which is
+what the kernel's walk of the unmerged incidences adds up, bit for bit.
+The kernel needs no other code for it: a merged site is a site with one
+incidence.  A site is a candidate when it has a live dense incidence and
+its merged table has at most ``MERGE_MAX_ROWS`` rows; the gather bank is
+never merged.  The candidates merged are those ``_merge_within_plan``
+picks, so that the merged lists and tables launch as the unmerged ones
+would (``gibbs_cuda.launch_shapes``).  The header keeps counting the
+net's own live work (``H_INCS``, ``H_SCOPE``, ``H_TABLE_FLOATS``: see
+``compact_counts``); what the kernel walks is in ``H_WALK_INCS``,
+``H_WALK_SCOPE`` and ``H_WALK_FLOATS`` (what ``c_tables`` holds and the
+kernel stages), and the number of merged sites in ``H_MERGED``.
+
+  u_lists, u_tables — the same variant's lists and tables with no site
+           merged.  The tempered burn-in walks them on scaled tables
+           (``ops.sweep.scale_tables``): a merged row scaled is the
+           scaled sum, which rounds apart from the sum of the scaled rows
+           that the plain version adds.  Same launch shapes as the merged
+           lists (``_merge_within_plan``), the same ``c_rows``.
 """
 
 from __future__ import annotations
@@ -82,17 +110,21 @@ from __future__ import annotations
 import numpy as np
 
 #: words of a ``c_lists`` header, and what each holds
-HDR = 16
+HDR = 20
 (H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_OFF_COLOR, H_OFF_SITES,
  H_OFF_INCS, H_OFF_SCOPE, H_WORDS, H_GINCS, H_GSCOPE, H_OFF_GSITES, H_OFF_GINCS,
- H_OFF_GSCOPE, H_GTAB0) = range(16)
+ H_OFF_GSCOPE, H_GTAB0, H_WALK_INCS, H_WALK_SCOPE, H_WALK_FLOATS, H_MERGED) = range(20)
 
-COMPACT_KEYS = ("c_lists", "c_tables", "c_rows")
+COMPACT_KEYS = ("c_lists", "c_tables", "c_rows", "u_lists", "u_tables")
+
+#: a live site whose merged table (one row per configuration of its
+#: Markov blanket) would have at most this many rows may walk it
+MERGE_MAX_ROWS = 64
 
 #: capacities are rounded up to these many elements (lists and tables in
 #: 16-byte units for the kernel's asynchronous copies, with some slack so
 #: that a slightly larger variant still fits the group's tensors)
-_ROUND = {"c_lists": 256, "c_tables": 1024, "c_rows": 32}
+_ROUND = {"c_lists": 256, "c_tables": 1024, "c_rows": 32, "u_lists": 256, "u_tables": 1024}
 
 #: a scope word packs the dense row into 16 bits and the stride above it
 MAX_DENSE_ROWS = 1 << 16
@@ -171,13 +203,33 @@ def kernel_stack(stack: dict, compact: bool = True) -> dict:
 
 
 def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None,
-                    gather=None) -> dict:
+                    gather=None, merge=None) -> dict:
     """Compact work lists of one variant from its dense kernel-order
     arrays (no leading axis), the card of every kernel row ``row_cards``
     [NVp], where the caller has them the real incidences of ``k_tables``,
     and its gather bank ``gather`` (the ``GATHER_KEYS``, ``gb_scope_vars``
     in kernel rows, and its flat ``tables`` [T]; None or ``Fg`` = 0 for
-    none); unpadded.  See the module doc for the format."""
+    none); unpadded.  ``merge`` [L] marks the live sites that walk a
+    merged table (None: every site the rule admits, ``MERGE_MAX_ROWS``,
+    with no launch budget).  See the module doc for the format."""
+    w = _live_work(k_scope, k_strides, k_tables, k_kmask, row_cards, real, gather)
+    return _both(w, w["candidate"] if merge is None else np.asarray(merge, dtype=bool),
+                 k_tables)
+
+
+def _both(w, merge, k_tables) -> dict:
+    """The lists with the sites ``merge`` on merged tables, and the
+    unmerged ones (``u_lists``, ``u_tables``)."""
+    out = _lists(w, merge, k_tables)
+    unmerged = _lists(w, np.zeros_like(merge), k_tables) if merge.any() else out
+    return {**out, "u_lists": unmerged["c_lists"], "u_tables": unmerged["c_tables"]}
+
+
+def _live_work(k_scope, k_strides, k_tables, k_kmask, row_cards, real, gather) -> dict:
+    """The live work of one variant before any merge: its live sites,
+    their dense incidences and scope entries, the rows each incidence's
+    strides reach, the state rows the lists keep, the gather bank, and
+    each live site's Markov blanket (``_blankets``)."""
     nc, G, F, S = k_scope.shape
     oa, K = k_tables.shape[3:]
     if G > MAX_DENSE_ROWS or K > 16:
@@ -188,8 +240,8 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None,
     live_inc = real & live_site[..., None]
     ci, gi = np.nonzero(live_site)  # colour-major, kernel order
     inc_of_site = live_inc[live_site]  # [L, F]
-    scope = k_scope[live_site][inc_of_site]  # [I, S] kernel rows
-    strides = k_strides[live_site][inc_of_site]
+    scope = k_scope[live_site][inc_of_site].astype(np.int64)  # [I, S] kernel rows
+    strides = k_strides[live_site][inc_of_site].astype(np.int64)
     live_sc = strides > 0
     if strides.size and strides.max() >= MAX_STRIDE:
         raise ValueError(f"stride {strides.max()} does not fit a scope word")
@@ -200,36 +252,129 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None,
     rows = np.concatenate([site_rows, read[~np.isin(read, site_rows)]])
     if rows.size > MAX_DENSE_ROWS:
         raise ValueError(f"{rows.size} live state rows do not fit a scope word")
-    dense_of = np.full(row_cards.shape[0], -1, dtype=np.int64)
-    dense_of[rows] = np.arange(rows.size)
-
     # rows an incidence's strides can reach: 1 + the largest base
     reach = 1 + ((row_cards[scope] - 1) * strides * live_sc).sum(axis=1)
-    reach = np.minimum(reach, oa)
-    first_row = np.cumsum(reach) - reach
-    tables = k_tables[live_site][inc_of_site]  # [I, OA, K]
-    tables = tables[np.arange(oa)[None, :] < reach[:, None]].reshape(-1)
+    n_inc = inc_of_site.sum(axis=1)
+    w = {"nc": nc, "K": K, "live_site": live_site, "ci": ci, "gi": gi, "n_inc": n_inc,
+         "inc_site": np.repeat(np.arange(ci.size), n_inc), "scope": scope,
+         "strides": strides, "live_sc": live_sc, "reach": np.minimum(reach, oa),
+         "dense_row": np.flatnonzero(live_inc) * oa,  # row 0 of each in k_tables [-1, K]
+         "tables": k_tables[live_site][inc_of_site], "rows": rows, "bank": bank,
+         "kbits": (k_kmask[live_site].astype(np.int64) << np.arange(K)).sum(axis=1)}
+    w.update(_blankets(w, row_cards, reach <= oa))
+    return w
+
+
+def _blankets(w, row_cards, whole) -> dict:
+    """Each live site's Markov blanket: the distinct rows of its live
+    scope entries, first seen in ``f`` then ``s`` order (``b_*`` arrays,
+    site-major, with their cards and the C-order mixed-radix strides of
+    the site's merged table), where each live scope entry lands among
+    them (``e_pos``), and the merge rule's candidates with what merging
+    each changes: incidences (``d_incs``), scope entries (``d_scope``)
+    and table floats (``d_floats``).  ``whole`` [I]: the incidences whose
+    strides stay inside their table."""
+    L, K = w["ci"].size, w["K"]
+    inc_idx, s_idx = np.nonzero(w["live_sc"])  # live entries, in walk order
+    e_site = w["inc_site"][inc_idx]
+    key = e_site * row_cards.size + w["scope"][inc_idx, s_idx]
+    _, first, inverse = np.unique(key, return_index=True, return_inverse=True)
+    order = np.argsort(first)  # distinct (site, row) pairs in first-seen order
+    b_pos = np.empty_like(order)
+    b_pos[order] = np.arange(order.size)
+    b_first = first[order]
+    b_site, b_row = e_site[b_first], w["scope"][inc_idx[b_first], s_idx[b_first]]
+    b_card = row_cards[b_row].astype(np.int64)
+    # the merge rule, then each candidate's table rows and C-order strides
+    nb = np.bincount(b_site, minlength=L)
+    ok = np.ones(L, dtype=bool)
+    np.logical_and.at(ok, w["inc_site"], whole)
+    limit = np.log(MERGE_MAX_ROWS) + 1e-9 if MERGE_MAX_ROWS > 0 else -np.inf
+    candidate = (w["n_inc"] > 0) & ok & (
+        np.bincount(b_site, np.log(b_card.astype(np.float64)), minlength=L) <= limit)
+    start = np.cumsum(nb) - nb
+    at = np.arange(b_site.size) - start[b_site]
+    on = candidate[b_site]
+    b_stride = np.where(on, 1, 0).astype(np.int64)
+    for d in range(1, int(nb[candidate].max(initial=0))):
+        j = np.flatnonzero(on & (at + d < nb[b_site]))
+        b_stride[j] *= b_card[j + d]
+    rows = np.where(candidate, 1, 0).astype(np.int64)
+    lead = candidate & (nb > 0)
+    rows[lead] = b_stride[start[lead]] * b_card[start[lead]]
+    return {"b_site": b_site, "b_row": b_row, "b_card": b_card, "b_stride": b_stride,
+            "e_pos": b_pos[inverse], "m_rows": rows, "candidate": candidate,
+            "d_incs": 1 - w["n_inc"],
+            "d_scope": nb - np.bincount(e_site, minlength=L),
+            "d_floats": K * (rows - np.bincount(w["inc_site"], w["reach"], minlength=L)
+                             .astype(np.int64))}
+
+
+def _lists(w, merge, k_tables) -> dict:
+    """``compact_variant``'s output from the live work ``w`` with the
+    live sites ``merge`` [L] (candidates only) on merged tables."""
+    if (merge & ~w["candidate"]).any():
+        raise ValueError("only the merge rule's candidates can walk a merged table")
+    L, K, nc = w["ci"].size, w["K"], w["nc"]
+    bank, rows = w["bank"], w["rows"]
+    dense_of = np.full(int(rows.max(initial=0)) + 1, -1, dtype=np.int64)
+    dense_of[rows] = np.arange(rows.size)
+
+    # the walked incidences: each unmerged site's own, one per merged site
+    keep = ~merge[w["inc_site"]]
+    msites = np.flatnonzero(merge)
+    w_site = np.concatenate([w["inc_site"][keep], msites])
+    order = np.argsort(w_site, kind="stable")
+    at = np.empty_like(order)
+    at[order] = np.arange(order.size)  # walk position of each
+    at_kept, at_merged = at[:int(keep.sum())], at[int(keep.sum()):]
+    w_reach = np.concatenate([w["reach"][keep], w["m_rows"][msites]])[order]
+    first_row = np.cumsum(w_reach) - w_reach
+
+    # their scope entries: an unmerged incidence's own, a merged site's blanket
+    inc_idx, s_idx = np.nonzero(w["live_sc"])
+    kept_at = np.full(keep.size, -1, dtype=np.int64)
+    kept_at[keep] = at_kept
+    ek = keep[inc_idx]
+    merged_at = np.full(L, -1, dtype=np.int64)
+    merged_at[msites] = at_merged
+    bm = merge[w["b_site"]]
+    q_key = np.concatenate([kept_at[inc_idx[ek]], merged_at[w["b_site"][bm]]])
+    so = np.argsort(q_key, kind="stable")
+    q_row = np.concatenate([w["scope"][inc_idx[ek], s_idx[ek]], w["b_row"][bm]])[so]
+    q_stride = np.concatenate([w["strides"][inc_idx[ek], s_idx[ek]], w["b_stride"][bm]])[so]
+
+    # their tables: an unmerged incidence's rows as they are, a merged
+    # site's rows folded from its incidences' rows (``fold_rows``)
+    tables = np.zeros((int(w_reach.sum()), K), dtype=np.float32)
+    kept = np.flatnonzero(keep)
+    r_k = w["reach"][kept]
+    off = np.arange(r_k.sum()) - np.repeat(np.cumsum(r_k) - r_k, r_k)
+    tables[np.repeat(first_row[at_kept], r_k) + off] = w["tables"][np.repeat(kept, r_k), off]
+    fold_rows(k_tables.reshape(-1, K), *_fold_terms(w, msites, first_row[at_merged]), tables)
+    tables = tables.reshape(-1)
     if tables.size + bank["tables"].size >= 2 ** 31:
         raise ValueError(f"{tables.size + bank['tables'].size} compact table floats "
                          "exceed int32 offsets")
 
-    kbits = (k_kmask[live_site].astype(np.int64) << np.arange(K)).sum(axis=1)
     sections = [
-        np.cumsum(live_site.sum(axis=1)),  # color_end
-        np.stack([gi | (kbits << 16), np.cumsum(inc_of_site.sum(axis=1))],
+        np.cumsum(w["live_site"].sum(axis=1)),  # color_end
+        np.stack([w["gi"] | (w["kbits"] << 16), np.cumsum(np.where(merge, 1, w["n_inc"]))],
                  axis=1).reshape(-1),  # sites
-        np.stack([first_row, np.cumsum(live_sc.sum(axis=1))], axis=1).reshape(-1),  # incs
-        dense_of[scope[live_sc]] | (strides[live_sc].astype(np.int64) << 16),  # scope
+        np.stack([first_row, np.cumsum(np.bincount(q_key, minlength=order.size))],
+                 axis=1).reshape(-1),  # incs
+        dense_of[q_row] | (q_stride << 16),  # scope
         bank["site_end"],  # gsites
         np.stack([bank["offset"] + tables.size, bank["self_stride"], bank["scope_end"],
                   np.zeros_like(bank["offset"])], axis=1).reshape(-1),  # gincs
         np.stack([dense_of[bank["scope"]], bank["strides"]], axis=1).reshape(-1),  # gscope
     ]
     head = np.zeros(HDR, dtype=np.int64)
-    head[[H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_GINCS, H_GSCOPE, H_GTAB0]] = (
-        ci.size, rows.size, scope.shape[0], int(live_sc.sum()),
-        tables.size + bank["tables"].size, bank["offset"].size, bank["scope"].size,
-        tables.size)
+    head[[H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS, H_GINCS, H_GSCOPE, H_GTAB0,
+          H_WALK_INCS, H_WALK_SCOPE, H_WALK_FLOATS, H_MERGED]] = (
+        L, rows.size, keep.size, inc_idx.size, K * w["reach"].sum() + bank["tables"].size,
+        bank["offset"].size, bank["scope"].size, tables.size, order.size, q_row.size,
+        tables.size + bank["tables"].size, msites.size)
     words = [head]
     off = HDR
     for h, sec in zip((H_OFF_COLOR, H_OFF_SITES, H_OFF_INCS, H_OFF_SCOPE, H_OFF_GSITES,
@@ -242,6 +387,45 @@ def compact_variant(k_scope, k_strides, k_tables, k_kmask, row_cards, real=None,
     return {"c_lists": np.concatenate(words).astype(np.int32),
             "c_tables": np.concatenate([tables, bank["tables"]]).astype(np.float32),
             "c_rows": rows.astype(np.int32)}
+
+
+def _fold_terms(w, msites, row0) -> tuple:
+    """The terms of the merged tables of sites ``msites``, whose rows
+    start at table row ``row0``: for each row ``r`` of a merged site's
+    table and each of the site's live incidences, in ``f`` order (the
+    term's ``layer``), the row (``dst``) and the incidence's row that the
+    blanket configuration ``r`` reads in ``k_tables`` viewed as [-1, K]
+    (``src``)."""
+    m_rows = w["m_rows"][msites]
+    n_pairs = int(m_rows.sum())
+    p_site = np.repeat(msites, m_rows)
+    p_r = np.arange(n_pairs) - np.repeat(np.cumsum(m_rows) - m_rows, m_rows)
+    n_t = w["n_inc"][p_site]
+    t_pair = np.repeat(np.arange(n_pairs), n_t)
+    layer = np.arange(t_pair.size) - np.repeat(np.cumsum(n_t) - n_t, n_t)
+    inc0 = np.cumsum(w["n_inc"]) - w["n_inc"]
+    t_inc = inc0[p_site[t_pair]] + layer
+    pos = np.full(w["live_sc"].shape, -1, dtype=np.int64)
+    pos[w["live_sc"]] = w["e_pos"]
+    pos = pos[t_inc]  # [T, S]: the blanket row each scope slot reads
+    live = pos >= 0
+    stride, card = np.append(w["b_stride"], 1), np.append(w["b_card"], 1)
+    pos = np.where(live, pos, stride.size - 1)
+    digit = (p_r[t_pair][:, None] // stride[pos]) % card[pos]
+    src = w["dense_row"][t_inc] + (digit * w["strides"][t_inc] * live).sum(axis=1)
+    return (np.repeat(row0, m_rows) + p_r)[t_pair], src, layer
+
+
+def fold_rows(rows, dst, src, layer, out) -> None:
+    """Set rows ``dst`` of ``out`` [R, K] to their terms' rows of ``rows``
+    [X, K] summed in float32 from 0.0, one add a layer, layer by layer:
+    the left-to-right sum the kernel makes over a site's incidences (a
+    row's terms have distinct layers, a layer's terms distinct rows)."""
+    acc = np.zeros_like(out)
+    for m in range(int(layer.max(initial=-1)) + 1):
+        on = layer == m
+        acc[dst[on]] = acc[dst[on]] + rows[src[on]]
+    out[dst] = acc[dst]
 
 
 def _gather_bank(gather, live_site, k_kmask, row_cards) -> dict:
@@ -294,16 +478,20 @@ def compact_stack(dense: dict, cards: np.ndarray, reals=None) -> dict:
     output (``cards`` [N, V+1] by old var id; ``reals``: each variant's
     real incidences in kernel order, where the caller has them; the
     gather bank where ``dense`` holds it), zero-padded to one capacity
-    per tensor and stacked."""
-    banks = [None] * dense["k_scope"].shape[0]
+    per tensor and stacked.  The sites on merged tables are those
+    ``_merge_within_plan`` picks."""
+    n = dense["k_scope"].shape[0]
+    banks = [None] * n
     if "gb_offset" in dense:
         banks = [{key: dense[key][i] for key in (*GATHER_KEYS, "gb_scope_vars", "tables")}
-                 for i in range(len(banks))]
-    per = [compact_variant(dense["k_scope"][i], dense["k_strides"][i],
-                           dense["k_tables"][i], dense["k_kmask"][i],
-                           np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64),
-                           None if reals is None else reals[i], banks[i])
-           for i in range(dense["k_scope"].shape[0])]
+                 for i in range(n)]
+    works = [_live_work(dense["k_scope"][i], dense["k_strides"][i], dense["k_tables"][i],
+                        dense["k_kmask"][i],
+                        np.asarray(cards[i])[dense["pal_oon"][i]].astype(np.int64),
+                        None if reals is None else reals[i], banks[i])
+             for i in range(n)]
+    merges = _merge_within_plan(works, "gb_offset" in dense and dense["gb_offset"].shape[-1] > 0)
+    per = [_both(w, m, dense["k_tables"][i]) for i, (w, m) in enumerate(zip(works, merges))]
     out = {}
     for key in COMPACT_KEYS:
         cap = compact_capacity(key, max(p[key].size for p in per))
@@ -311,9 +499,78 @@ def compact_stack(dense: dict, cards: np.ndarray, reals=None) -> dict:
     return out
 
 
+def _pad4(x):
+    return x + (-x % 4)
+
+
+def _merge_within_plan(works, gather: bool) -> list:
+    """The live sites of each variant that walk a merged table: the merge
+    rule's candidates, taken in order of incidences saved per table byte
+    added (those that add none first), as far as every variant goes with
+    one threshold, the lowest whose padded lists and tables launch as the
+    unmerged ones (``gibbs_cuda.launch_shapes``): ``plan_launch`` gives
+    these variants' launches the form, threads and staging it gives them
+    unmerged."""
+    from grample_tpu_torch.ops import gibbs_cuda
+
+    K = works[0]["K"]
+    rows = compact_capacity("c_rows", max(w["rows"].size for w in works))
+    fixed, base, orders, cums = [], [], [], []
+    for w in works:
+        b = w["bank"]
+        fixed.append(HDR + _pad4(w["nc"]) + _pad4(2 * w["ci"].size) + _pad4(b["site_end"].size)
+                     + _pad4(4 * b["offset"].size) + _pad4(2 * b["scope"].size))
+        base.append((w["n_inc"].sum(), int(w["live_sc"].sum()),
+                     K * int(w["reach"].sum()) + b["tables"].size))
+        cand = np.flatnonzero(w["candidate"])
+        saved, added = -w["d_incs"][cand], 4 * w["d_floats"][cand]
+        key = np.where(added <= 0, np.inf, saved / np.maximum(added, 1))
+        order = cand[np.argsort(-key, kind="stable")]
+        orders.append((order, np.sort(key)[::-1]))
+        cums.append([np.concatenate([[0], np.cumsum(w[d][order])])
+                     for d in ("d_incs", "d_scope", "d_floats")])
+
+    def shapes(counts):
+        lw = max(f + _pad4(2 * (i + c[0][k])) + _pad4(q + c[1][k])
+                 for f, (i, q, _), c, k in zip(fixed, base, cums, counts))
+        tw = max(t + c[2][k] for (_, _, t), c, k in zip(base, cums, counts))
+        return gibbs_cuda.launch_shapes(4 * compact_capacity("c_lists", lw),
+                                        4 * compact_capacity("c_tables", tw), rows, K, gather)
+
+    want, pick = shapes([0] * len(works)), [0] * len(works)
+    for th in np.unique(np.concatenate([k for _, k in orders])):  # the most merged first
+        counts = [int(np.searchsorted(-k, -th, side="right")) for _, k in orders]
+        if shapes(counts) == want:
+            pick = counts
+            break
+    out = []
+    for w, (order, _), k in zip(works, orders, pick):
+        m = np.zeros(w["ci"].size, dtype=bool)
+        m[order[:k]] = True
+        out.append(m)
+    return out
+
+
 def compact_counts(c_lists) -> np.ndarray:
     """[N, 7] live sites, state rows, dense incidences, dense scope
     entries, table floats (both banks), gather incidences and gather scope
-    entries of each variant, read from the headers of ``c_lists``."""
+    entries of each variant, read from the headers of ``c_lists``: the
+    net's live work, merged or not (``walk_counts`` has what the kernel
+    walks)."""
     return np.asarray(c_lists)[:, [H_SITES, H_ROWS, H_INCS, H_SCOPE, H_TABLE_FLOATS,
                                    H_GINCS, H_GSCOPE]]
+
+
+def merged_sites(kst: dict) -> np.ndarray:
+    """[N] live sites on merged tables of each variant of ``kernel_stack``
+    output ``kst`` (numpy); 0 where it carries no compact lists."""
+    if "c_lists" not in kst:
+        return np.zeros(kst["k_kmask"].shape[0], dtype=np.int64)
+    return kst["c_lists"][:, H_MERGED].astype(np.int64)
+
+
+def walk_counts(c_lists) -> np.ndarray:
+    """[N, 4] dense incidences, dense scope entries and table floats (both
+    banks) that the kernel walks, and live sites on merged tables, of each
+    variant of ``c_lists``."""
+    return np.asarray(c_lists)[:, [H_WALK_INCS, H_WALK_SCOPE, H_WALK_FLOATS, H_MERGED]]

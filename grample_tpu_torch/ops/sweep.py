@@ -136,8 +136,17 @@ TABLE_KEYS = ("k_tables", "c_tables", "tables")
 def scale_tables(kst: dict, beta: float) -> dict:
     """``kst`` with every log table (dense, compact and flat) times
     ``beta`` (the reference scales its flat tables too,
-    ``sampler/chains.py:723``)."""
-    return {**kst, **{k: kst[k] * beta for k in TABLE_KEYS if k in kst}}
+    ``sampler/chains.py:723``).  The compact lists become the unmerged ones
+    (``ops.layout``'s ``u_lists``): a merged table scaled would hold the
+    scaled sum of its rows, not the sum of the scaled rows that the plain
+    version adds."""
+    out = dict(kst)
+    if "u_lists" in kst:
+        out["c_lists"], out["c_tables"] = kst["u_lists"], kst["u_tables"]
+    out.update({k: out[k] * beta for k in TABLE_KEYS if k in out})
+    if "u_lists" in kst:
+        out["u_tables"] = out["c_tables"]
+    return out
 
 
 def window(kst: dict, state_p, seed: int, num_sweeps: int, half_point: int,

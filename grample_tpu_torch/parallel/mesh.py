@@ -86,7 +86,7 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.metrics.psrf import convergence_moments, psrf_from_moments
-from grample_tpu_torch.ops.layout import kernel_stack
+from grample_tpu_torch.ops.layout import kernel_stack, merged_sites
 from grample_tpu_torch.ops.sweep import (
     advance_chains,
     hash_block,
@@ -289,6 +289,7 @@ class ShardedChainGroup(ChainGroup):
         self._scatter(torch.as_tensor(state), None)
         nl = self.local_slots
         self.kstack = []
+        merged = np.zeros(self.slot_cap, dtype=np.int64)
         for vi in range(self.mesh.shape[VARIANT_AXIS]):
             devs = dict.fromkeys(sh.device for sh in self._row(vi))
             row = {}
@@ -296,7 +297,10 @@ class ShardedChainGroup(ChainGroup):
                 kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
                                    self.route == "kernel")
                 row = {dev: to_device(kst, dev) for dev in devs}
+                merged[vi * nl:(vi + 1) * nl] = (merged_sites(kst) * self.local_chains
+                                                 * len(self._row(vi)))
             self.kstack.append(row)
+        self.merged_chains = self._reduce(merged)  # each shard on one process
 
     def _scatter(self, state, halves) -> None:
         """Rebuild this process's shards from whole tensors (any device);
@@ -316,6 +320,7 @@ class ShardedChainGroup(ChainGroup):
 
     def _write_slots(self, slots, stack, state: np.ndarray) -> None:
         nl, cl = self.local_slots, self.local_chains
+        merged = np.zeros(len(slots), dtype=np.int64)
         for vi in range(self.mesh.shape[VARIANT_AXIS]):
             sel = [i for i, s in enumerate(slots) if s // nl == vi]
             if not sel:
@@ -326,9 +331,12 @@ class ShardedChainGroup(ChainGroup):
                                      self.route == "kernel")
                 for dev, kst in self.kstack[vi].items():
                     write_slots(kst, loc, to_device(fresh, dev))
+                merged[sel] = merged_sites(fresh) * cl * len(self._row(vi))
             for sh in self._row(vi):
                 sh.state[loc] = torch.as_tensor(
                     np.ascontiguousarray(state[sel][:, sh.c0:sh.c0 + cl]), device=sh.device)
+        if stack is not None:
+            self.merged_chains[slots] = self._reduce(merged)
 
     def restore_device_state(self, state, halves):
         """Checkpointed tensors [Ncap, ...] (any device or numpy) go back

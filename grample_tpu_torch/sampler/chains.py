@@ -43,13 +43,14 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.metrics.psrf import chain_convergence
+from grample_tpu_torch.ops.layout import kernel_stack, merged_sites
 from grample_tpu_torch.ops.sweep import (
     advance_chains,
     check_supported,
     hash_block,
     route_for,
     scale_tables,
-    sweep_tensors,
+    to_device,
     write_slots,
 )
 from grample_tpu_torch.pgm.discrete import DiscreteModel
@@ -118,6 +119,11 @@ class ChainGroup:
     #: the tracer counter of the site updates this group claims
     #: (``advance``); a split group's aux group counts under ``sites.aux``
     sites_counter = "sites.main"
+
+    #: per slot, its live sites on merged tables (``ops.layout``) times its
+    #: chains over the whole group, set where its sweep tensors are built
+    #: (``advance`` counts ``sites.merged`` from it)
+    merged_chains = np.zeros(0, dtype=np.int64)
 
     #: device tensors, built by ``_place`` at the first restack
     kstack = None  # kernel-order sweep tensors [Ncap, ...]
@@ -342,7 +348,9 @@ class ChainGroup:
         axis Ncap) and the fresh states ``state`` [Ncap, C, V+1], over
         which the slots held so far keep their states; the window halves
         start at zero."""
-        self.kstack = sweep_tensors(stack, self.device, self.route == "kernel")
+        host = kernel_stack(stack, self.route == "kernel")
+        self.kstack = to_device(host, self.device)
+        self.merged_chains = merged_sites(host) * self.cpv
         new_state = torch.as_tensor(state, device=self.device)
         if self.state is not None:
             n = min(self.state.shape[0], self.slot_cap)
@@ -360,8 +368,9 @@ class ChainGroup:
         restack, which placed them already) and their states ``state``
         [n, C, V+1]."""
         if stack is not None:
-            write_slots(self.kstack, slots,
-                        sweep_tensors(stack, self.device, self.route == "kernel"))
+            fresh = kernel_stack(stack, self.route == "kernel")
+            write_slots(self.kstack, slots, to_device(fresh, self.device))
+            self.merged_chains[slots] = merged_sites(fresh) * self.cpv
         self.state[slots] = torch.as_tensor(state, device=self.device)
 
     def add_variant(self, model: DiscreteModel, burn_sweeps: int = 0,
@@ -500,6 +509,9 @@ class ChainGroup:
         )
         self.total_samples += taken
         self.tracer.add(self.sites_counter, taken)
+        # those of them whose site walks a merged table of the kernel's
+        # lists (on the CPU the plain version stands in for the kernel)
+        self.tracer.add("sites.merged", sweeps * int(self.merged_chains[:self.num_variants].sum()))
         if not defer:
             self.flush()
         return taken

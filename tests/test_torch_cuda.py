@@ -23,7 +23,7 @@ import torch
 import grample_tpu_torch.pgm.discrete as port_pgm
 import grample_tpu_torch.pgm.encode as port_encode
 from grample_tpu_torch.metrics import hellinger
-from grample_tpu_torch.ops import gibbs_cuda, sweep
+from grample_tpu_torch.ops import gibbs_cuda, layout, sweep
 from grample_tpu_torch.ops.gibbs_bank import window_ops
 from grample_tpu_torch.ops.gibbs_torch import window_plain
 from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
@@ -144,6 +144,77 @@ def test_full_card_launch_at_wide_cards(cuda_device, card, count):
     assert occ["max_threads"] >= plan.threads and occ["blocks_per_sm"] >= 1, occ
     assert occ["registers"] * plan.threads <= 65536, occ
     _kernel_vs_plain([enc, enc], cuda_device, 131072, count)
+
+
+def _smoke_encs(net):
+    """Two variants of the smoke run's 10x10 grid, or of its
+    Promedus-shaped net, at their plain caps."""
+    if net == "grid10":
+        models, caps = torch_models.grid10_variants(port_pgm)
+        m = models[0]
+    else:
+        m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+        m.apply_evidence(evidence)
+        caps = port_encode.compute_caps(m, headroom_factors=0)
+    return [port_encode.encode_model(m, caps)] * 2
+
+
+@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("sites", [False, True])
+@pytest.mark.parametrize("net", ["grid10", "promedus"])
+def test_merged_lists_equal_unmerged_on_card(cuda_device, monkeypatch, net, sites, count):
+    """The kernel on the merged lists (``ops.layout``: most sites walk one
+    table over their Markov blanket) against the kernel on the same
+    encoding's unmerged lists, in both forms, counted and uncounted: the
+    same launch plan, and states and counts equal bit for bit, since a
+    merged row is the sum the unmerged walk makes."""
+    stack = port_encode.stack_variants(_smoke_encs(net))
+    kst = sweep.sweep_tensors(stack, cuda_device)
+    with monkeypatch.context() as mp:
+        mp.setattr(layout, "MERGE_MAX_ROWS", 0)
+        raw = sweep.sweep_tensors(stack, cuda_device)
+    merged = layout.walk_counts(kst["c_lists"].cpu().numpy())[:, 3]
+    assert (merged > 0).all() and not layout.walk_counts(raw["c_lists"].cpu().numpy())[:, 3].any()
+    c = 2048 if sites else 32768
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plans = [gibbs_cuda.plan_launch(k, c, count, sms, sites) for k in (kst, raw)]
+    assert len({(p.sites, p.threads, p.stage_lists, p.stage_tables) for p in plans}) == 1
+    n, nvp = kst["k_kmask"].shape[0], kst["pal_oon"].shape[1]
+    cards = np.asarray(stack["cards"])[np.arange(n)[:, None], kst["pal_oon"].cpu().numpy()]
+    init = np.floor(np.random.default_rng(4).random((n, nvp, c)) * cards[:, :, None])
+    state = torch.as_tensor(init.astype(np.int32), device=cuda_device)
+    sm, cm = gibbs_cuda.gibbs_window(kst, state.clone(), 1234567, 6, 3, count, 512, plans[0])
+    sr, cr = gibbs_cuda.gibbs_window(raw, state.clone(), 1234567, 6, 3, count, 512, plans[1])
+    torch.cuda.synchronize()
+    assert torch.equal(sm, sr) and not torch.equal(sm, state)
+    assert (cm is None and cr is None) if not count else torch.equal(cm, cr)
+
+
+def test_merged_site_counter_reads_the_lists_share(cuda_device, tmp_path, monkeypatch):
+    """An engine run of ``-s simple`` on the Promedus-shaped net on the
+    card: ``sites.merged`` over ``RunResult.samples`` is the share of live
+    sites on merged tables that the group's lists hold."""
+    from grample_tpu_torch.sampler import chains
+    from grample_tpu_torch.sampler.engine import Engine, EngineConfig
+    from grample_tpu_torch.uai.writer import write_model
+
+    m, _ = torch_models.promedus_like(port_pgm, seed=1)
+    path = str(tmp_path / "promedus.uai")
+    with open(path, "w") as fh:
+        fh.write(write_model(m))
+    seen = []
+
+    def spy(kst):
+        seen.append(kst["c_lists"][:, [layout.H_SITES, layout.H_MERGED]].astype(np.int64))
+        return layout.merged_sites(kst)
+
+    monkeypatch.setattr(chains, "merged_sites", spy)
+    cfg = EngineConfig(model_path=path, device="cuda", burnin=100, converge_window=200,
+                       chains=2, chains_per_variant=8192, max_secs=4.0, seed=3)
+    res = Engine(cfg, log=lambda line: None).run()
+    live, merged = seen[-1][:2].sum(axis=0)
+    assert 0 < merged < live and res.samples > 0
+    assert res.counters["sites.merged"] * live == merged * res.samples
 
 
 def _wide_encs(name):

@@ -62,8 +62,8 @@ def _inputs(name, chains, seed=3):
 def _sections(blob):
     """(color_end, sites [L, 2], incs [I, 2], scope [Q]) of one blob."""
     h = blob.astype(np.int64) & 0xFFFFFFFF
-    n_sites, n_incs, n_scope = (int(h[i]) for i in (layout.H_SITES, layout.H_INCS,
-                                                    layout.H_SCOPE))
+    n_sites, n_incs, n_scope = (int(h[i]) for i in (layout.H_SITES, layout.H_WALK_INCS,
+                                                    layout.H_WALK_SCOPE))
     off = [int(h[i]) for i in (layout.H_OFF_COLOR, layout.H_OFF_SITES,
                                layout.H_OFF_INCS, layout.H_OFF_SCOPE)]
     color_end = h[off[0]:off[1]]  # the padding of the section is cut by NC below
@@ -93,7 +93,7 @@ class _Walker:
         self.color_end, self.sites, self.incs, self.scope = _sections(blob)
         self.gsites, self.gincs, self.gscope = _gather_sections(blob)
         self.rows = kst["c_rows"][ni].numpy()
-        used, gtab0 = int(blob[layout.H_TABLE_FLOATS]), int(blob[layout.H_GTAB0])
+        used, gtab0 = int(blob[layout.H_WALK_FLOATS]), int(blob[layout.H_GTAB0])
         self.flat = kst["c_tables"][ni, :used]
         self.tabs = self.flat[:gtab0].reshape(-1, self.K)
         self.n_sites = int(blob[layout.H_SITES])
@@ -305,8 +305,8 @@ def test_gather_lists_in_slot_writes_and_scaling(name):
                                             "gb_scope_vars", "tables")}
     again = layout.compact_stack(dense, np.stack([e.cards for e in g.encs]))
     for key in layout.COMPACT_KEYS:
-        np.testing.assert_array_equal(scaled[key].numpy(), again[key])
-    assert not torch.equal(scaled["c_tables"], want["c_tables"])
+        np.testing.assert_array_equal(scaled[key].numpy(), again[TEMPERED.get(key, key)])
+    assert not torch.equal(scaled["c_tables"], want["u_tables"])
     g.burn_annealed(4, stages=2)
     assert g.advance(4) == 4 * 8 * sum(int(v.free_mask.sum()) for v in g.variants)
 
@@ -374,11 +374,66 @@ def test_live_counts_of_the_smoke_shapes(net, want):
     assert got[4] * 4 < kst["k_tables"].nbytes
 
 
+def _merged_form(dense, row_cards, K):
+    """(table [R, K], rows, strides) of a site's merged table from its
+    live dense incidences ``dense`` [(table [OA, K], scope rows,
+    strides)]: its blanket's distinct rows, first seen in order, C-order
+    strides over their cards, and each blanket configuration's sum of the
+    incidences' rows, in float32 from 0.0, one incidence at a time."""
+    blanket = list(dict.fromkeys(r for _, rs, _ in dense for r in rs.tolist()))
+    cards = [int(row_cards[r]) for r in blanket]
+    strides = [int(np.prod(cards[j + 1:], dtype=np.int64)) for j in range(len(cards))]
+    table = np.zeros((int(np.prod(cards, dtype=np.int64)), K), dtype=np.float32)
+    for r in range(table.shape[0]):
+        val = {b: (r // st) % c for b, st, c in zip(blanket, strides, cards)}
+        acc = np.zeros(K, dtype=np.float32)
+        for tab, rs, st in dense:
+            acc = acc + tab[sum(val[x] * y for x, y in zip(rs.tolist(), st.tolist()))]
+        table[r] = acc
+    return table, np.array(blanket, dtype=np.int64), np.array(strides, dtype=np.int64)
+
+
+def _site_walks(kst, i, cards):
+    """Per live site of variant ``i`` (its cards ``cards`` [V+1] by old
+    var id), in list order: its
+    walked incidences [(table rows, scope rows, strides)] read from the
+    compact lists, and what the dense tensors give it: its live dense
+    incidences [(table [OA, K], scope rows, strides)] and, where the merge
+    rule admits the site (``MERGE_MAX_ROWS``), its ``_merged_form``."""
+    blob = kst["c_lists"][i].numpy()
+    _, sites, incs, scope = _sections(blob)
+    K = kst["k_kmask"].shape[3]
+    rows = kst["c_rows"][i].numpy()
+    tabs = kst["c_tables"][i].numpy()[:int(blob[layout.H_GTAB0])].reshape(-1, K)
+    first = np.append(incs[:, 0], tabs.shape[0])
+    row_cards = np.asarray(cards)[kst["pal_oon"][i].numpy()]
+    live = kst["k_kmask"][i].bool().any(dim=2).numpy()
+    real = (kst["k_tables"][i].abs().amax(dim=(3, 4)) > 0).numpy()
+    out, inc, q = [], 0, 0
+    for site, (ci, g) in enumerate(zip(*np.nonzero(live))):
+        walked = []
+        for j in range(inc, int(sites[site, 1])):
+            e = scope[q:int(incs[j, 1])]
+            q = int(incs[j, 1])
+            walked.append((tabs[first[j]:first[j + 1]], rows[e & 0xFFFF], e >> 16))
+        inc = int(sites[site, 1])
+        dense = []
+        for f in np.flatnonzero(real[ci, g]):
+            st = kst["k_strides"][i][ci, g, f].numpy().astype(np.int64)
+            dense.append((kst["k_tables"][i][ci, g, f].numpy(),
+                          kst["k_scope"][i][ci, g, f].numpy()[st > 0], st[st > 0]))
+        blanket = {r for _, rs, _ in dense for r in rs.tolist()}
+        admit = dense and np.prod([row_cards[r] for r in blanket]) <= layout.MERGE_MAX_ROWS
+        out.append((walked, dense, _merged_form(dense, row_cards, K) if admit else None))
+    return out
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_row_renumbering_round_trips(name):
     """``c_rows`` lists the live sites' slots first, in list order, then
     the tail rows read; it has no repeats, every scope word points inside
-    it at the kernel row the dense tensors name, and kernel -> dense ->
+    it at the kernel row the dense tensors name (a merged site's: its
+    blanket's rows, at their mixed-radix strides), and kernel -> dense ->
     kernel is the identity on those rows."""
     kst, _ = _inputs(name, chains=1)
     n, nc, G, _ = kst["k_kmask"].shape
@@ -394,46 +449,82 @@ def test_row_renumbering_round_trips(name):
         dense_of = np.full(kst["pal_oon"].shape[1], -1)
         dense_of[rows] = np.arange(n_rows)
         np.testing.assert_array_equal(rows[dense_of[rows]], rows)
-        live = (kst["k_strides"][i] > 0) & (
-            kst["k_tables"][i].abs().amax(dim=(3, 4)) > 0)[..., None]
-        np.testing.assert_array_equal(rows[scope & 0xFFFF], kst["k_scope"][i][live].numpy())
-        np.testing.assert_array_equal(scope >> 16, kst["k_strides"][i][live].numpy())
+        assert (scope & 0xFFFF < n_rows).all()
+        for walked, dense, merged in _site_walks(kst, i, _encs(name)[i].cards):
+            want = [merged] if merged is not None else dense
+            assert len(walked) == len(want)
+            for (_, rs, st), (_, want_rs, want_st) in zip(walked, want):
+                np.testing.assert_array_equal(rs, want_rs)
+                np.testing.assert_array_equal(st, want_st)
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_ragged_tables_keep_every_reachable_row(name):
-    """Each live incidence keeps the first rows of its dense table, as many
-    as its strides can reach; the rows it drops are all zero."""
+    """Each walked incidence of an unmerged site keeps the first rows of
+    its dense table, as many as its strides can reach, and the rows it
+    drops are all zero; a merged site's one table is its blanket's
+    left-to-right sums (``_merged_form``), bit for bit; the sites on
+    merged tables are those the rule admits."""
     kst, _ = _inputs(name, chains=1)
-    K = kst["k_kmask"].shape[3]
     for i in range(kst["c_lists"].shape[0]):
-        _, _, incs, _ = _sections(kst["c_lists"][i].numpy())
         tabs = kst["c_tables"][i].numpy()
-        used = int(kst["c_lists"][i, layout.H_TABLE_FLOATS])
-        live = kst["k_tables"][i].abs().amax(dim=(3, 4)) > 0
-        dense = kst["k_tables"][i][live].numpy()  # [I, OA, K]
-        first = np.append(incs[:, 0], used // K)
-        for j in range(dense.shape[0]):
-            kept = int(first[j + 1] - first[j])
-            np.testing.assert_array_equal(
-                tabs[first[j] * K:first[j + 1] * K].reshape(kept, K), dense[j, :kept])
-            assert not dense[j, kept:].any()
+        used = int(kst["c_lists"][i, layout.H_WALK_FLOATS])
+        n_merged = 0
+        for walked, dense, merged in _site_walks(kst, i, _encs(name)[i].cards):
+            if merged is not None:
+                n_merged += 1
+                assert len(walked) == 1 and walked[0][0].shape == merged[0].shape
+                assert walked[0][0].tobytes() == merged[0].tobytes()
+                continue
+            assert len(walked) == len(dense)
+            for (tab, _, _), (full, _, _) in zip(walked, dense):
+                np.testing.assert_array_equal(tab, full[:tab.shape[0]])
+                assert not full[tab.shape[0]:].any()
+        assert n_merged == int(kst["c_lists"][i, layout.H_MERGED])
         assert not tabs[used:].any()
 
 
-@pytest.mark.parametrize("name", ["grid4_evid", "star8_c0", "star8_aux"])
-def test_beta_scaled_compact_tables(name):
-    """Scaling the compact tables equals compacting the scaled dense
-    tables (the tempered burn-in scales both)."""
+#: the compact lists a scaled stack walks: the unmerged ones
+TEMPERED = {"c_lists": "u_lists", "c_tables": "u_tables"}
+
+
+def _scaled_against_compacted(name, beta):
+    """``scale_tables`` at ``beta`` on case ``name``'s sweep tensors
+    against compacting its scaled dense tables: the scaled stack walks
+    the unmerged lists on scaled tables."""
     kst, _ = _inputs(name, chains=1)
-    scaled = sweep.scale_tables(kst, 0.25)
+    scaled = sweep.scale_tables(kst, beta)
     dense = {k: scaled[k].numpy() for k in ("k_scope", "k_strides", "k_tables", "k_kmask",
                                             "pal_oon")}
     encs = _encs(name)
     again = layout.compact_stack(dense, np.stack([e.cards for e in encs]))
     for key in layout.COMPACT_KEYS:
-        np.testing.assert_array_equal(scaled[key].numpy(), again[key])
-    assert not torch.equal(scaled["c_tables"], kst["c_tables"])
+        np.testing.assert_array_equal(scaled[key].numpy(), again[TEMPERED.get(key, key)])
+    return kst, scaled
+
+
+@pytest.mark.parametrize("name", ["grid4_evid", "star8_c0", "star8_aux"])
+def test_beta_scaled_compact_tables(name):
+    """Scaling the compact tables equals compacting the scaled dense
+    tables (the tempered burn-in scales both), with no site merged."""
+    kst, scaled = _scaled_against_compacted(name, 0.25)
+    assert not torch.equal(scaled["c_tables"], kst["u_tables"])
+
+
+@pytest.mark.parametrize("name", ["grid4_evid", "star8_c0", "star8_aux"])
+def test_tempered_windows_walk_the_unmerged_lists(name):
+    """At a beta that is no power of two a merged row's scaled sum rounds
+    apart from the sum of its scaled rows, so the scaled stack walks the
+    unmerged lists: a window on it is the plain version's on the scaled
+    dense tables, bit for bit."""
+    kst, scaled = _scaled_against_compacted(name, 0.3)
+    assert int(layout.walk_counts(kst["c_lists"].numpy())[:, 3].sum()) > 0
+    assert not layout.walk_counts(scaled["c_lists"].numpy())[:, 3].any()
+    _, state = _inputs(name, chains=16)
+    sw, cw = walk_window(scaled, state.clone(), 11, 3, 1, True, 8)
+    sp, cp = window_plain(*[scaled[k] for k in sweep.KERNEL_KEYS], state.clone(), 11, 3, 1,
+                          True, 8)
+    assert torch.equal(sw, sp) and torch.equal(cw, cp)
 
 
 def test_slot_write_equals_restack():
@@ -469,7 +560,8 @@ def test_compact_capacities_are_padded():
     assert kst["c_lists"].shape[1] == layout.compact_capacity(
         "c_lists", kst["c_lists"][:, layout.H_WORDS].max())
     assert kst["c_rows"].shape[1] == layout.compact_capacity("c_rows", counts[:, 1].max())
-    assert kst["c_tables"].shape[1] == layout.compact_capacity("c_tables", counts[:, 4].max())
+    assert kst["c_tables"].shape[1] == layout.compact_capacity(
+        "c_tables", layout.walk_counts(kst["c_lists"].numpy())[:, 2].max())
     assert not (counts[0] == counts[2]).all()  # a plain slot and a collapse variant
 
 
@@ -550,3 +642,141 @@ def test_plan_launch_refuses_what_does_not_fit():
             gibbs_cuda.plan_launch(_shapes(1, 65536, 16, 256, 1024), chains, True, 132)
     assert [gibbs_cuda.state_bits(k) for k in (2, 3, 4, 5, 16)] == [1, 2, 2, 4, 4]
     assert gibbs_cuda.state_words(916, 2) == 29 and gibbs_cuda.state_words(100, 3) == 7
+
+
+# ---- merged tables -----------------------------------------------------------
+
+def _unmerged(monkeypatch, build):
+    """``build()`` with no site on a merged table: the rule's row bound
+    patched to 0 for the call."""
+    with monkeypatch.context() as mp:
+        mp.setattr(layout, "MERGE_MAX_ROWS", 0)
+        return build()
+
+
+@pytest.mark.parametrize("name,bound", [("star10", 64), ("grid4_evid", 8), ("star6_card3_evid", 9)])
+def test_merge_rule_keeps_wide_blankets(monkeypatch, name, bound):
+    """A site whose merged table would have more than ``MERGE_MAX_ROWS``
+    rows keeps its own incidences (the star's centre: 512 rows; the
+    grid's inner sites at a bound of 8: 16 rows; the card-3 star's
+    centre at 9: 243 rows), every other site with a live dense incidence
+    walks one merged table, and the window is the plain version's bit for
+    bit either way."""
+    monkeypatch.setattr(layout, "MERGE_MAX_ROWS", bound)
+    kst, state = _inputs(name, chains=16)
+    kept = merged = 0
+    for i in range(kst["c_lists"].shape[0]):
+        for walked, dense, form in _site_walks(kst, i, _encs(name)[i].cards):
+            if form is None:
+                kept += bool(dense)
+                assert len(walked) == len(dense)
+            else:
+                merged += 1
+                assert len(walked) == 1 and walked[0][0].shape[0] <= bound
+        assert int(kst["c_lists"][i, layout.H_MERGED]) > 0
+    assert kept > 0 and merged > 0
+    sw, cw = walk_window(kst, state.clone(), 5, 2, 1, True, 8)
+    sp, cp = window_plain(*[kst[k] for k in sweep.KERNEL_KEYS], state.clone(), 5, 2, 1, True, 8)
+    assert torch.equal(sw, sp) and torch.equal(cw, cp)
+
+
+def _promedus_stack(variants=2):
+    m, evidence = torch_models.promedus_like(port_pgm, seed=1)
+    m.apply_evidence(evidence)
+    caps = port_encode.compute_caps(m, headroom_factors=0)
+    return port_encode.stack_variants([port_encode.encode_model(m, caps)] * variants)
+
+
+def _plans(kst):
+    """Form, threads and staging of ``plan_launch`` over launch sizes and
+    forms."""
+    kt = {k: torch.as_tensor(kst[k]) for k in (*layout.COMPACT_KEYS, "k_kmask")}
+    return [(p.sites, p.threads, p.stage_lists, p.stage_tables)
+            for c in (256, 2048, 8192, 16384, 32768, 65536, 131072)
+            for sites in (None, False, True)
+            for p in [gibbs_cuda.plan_launch(kt, c, True, 132, sites)]]
+
+
+def test_merge_keeps_the_launch_plan(monkeypatch):
+    """On the Promedus-shaped net, merging every candidate would move
+    launches to other block widths (its merged tables double the staged
+    bytes); the lists merge candidates in order of incidences saved per
+    byte only as far as every launch keeps the form, threads and staging
+    it has unmerged."""
+    stack = _promedus_stack()
+    dense = layout.kernel_stack(stack, compact=False)
+    unmerged = _unmerged(monkeypatch, lambda: layout.kernel_stack(stack))
+    kst = layout.kernel_stack(stack)
+    cards = np.asarray(stack["cards"])
+    every = [layout.compact_variant(dense["k_scope"][i], dense["k_strides"][i],
+                                    dense["k_tables"][i], dense["k_kmask"][i],
+                                    cards[i][dense["pal_oon"][i]].astype(np.int64))
+             for i in range(2)]
+    greedy = {key: np.stack([np.pad(p[key], (0, layout.compact_capacity(
+        key, max(q[key].size for q in every)) - p[key].size)) for p in every])
+        for key in layout.COMPACT_KEYS}
+    greedy["k_kmask"] = dense["k_kmask"]
+    n_greedy = layout.walk_counts(greedy["c_lists"])[0, 3]
+    n_merged = layout.walk_counts(kst["c_lists"])[0, 3]
+    assert layout.walk_counts(unmerged["c_lists"])[0, 3] == 0 < n_merged < n_greedy
+    assert _plans(greedy) != _plans(unmerged)
+    assert _plans(kst) == _plans(unmerged)
+
+
+@pytest.mark.parametrize("net,want", [
+    ("grid10", (97, 352, 97)),
+    ("promedus", (1190, 2333, 746)),
+])
+def test_walk_counts_of_the_smoke_shapes(net, want):
+    """What the kernel walks on the smoke run's shapes (the live work is
+    ``test_live_counts_of_the_smoke_shapes``'s): every grid site on a
+    merged table of 16 rows, one incidence a site; on the Promedus-shaped
+    net, 746 of its 870 sites, as far as its launches keep their plan."""
+    if net == "grid10":
+        models, caps = torch_models.grid10_variants(port_pgm)
+        stack = port_encode.stack_variants([port_encode.encode_model(models[0], caps)])
+    else:
+        stack = _promedus_stack(1)
+    kst = layout.kernel_stack(stack)
+    walked = layout.walk_counts(kst["c_lists"])[0]
+    assert tuple(walked[[0, 1, 3]]) == want
+    assert layout.merged_sites(kst)[0] == want[2]
+
+
+def _pairwise(terms):
+    """numpy's sum of ``terms`` [T, K] over T, column by column: pairwise
+    (unrolled by 8) on contiguous float32."""
+    return np.array([np.ascontiguousarray(terms[:, k]).sum() for k in range(terms.shape[1])],
+                    dtype=np.float32)
+
+
+def test_fold_adds_left_to_right():
+    """A merged row is the left-to-right float32 sum of its terms, which
+    is what the kernel's walk adds, and not numpy's pairwise sum, on a
+    case where the two differ; so is a merged table of a site with twelve
+    unary factors, and the window walks it as the plain version sums."""
+    terms = np.array([[1.0, -1.0]] + [[2.0 ** -24, 3.0]] * 11, dtype=np.float32)
+    seq = np.zeros(2, dtype=np.float32)
+    for t in terms:
+        seq = seq + t
+    assert seq.tobytes() != _pairwise(terms).tobytes()
+    out = np.zeros((3, 2), dtype=np.float32)
+    layout.fold_rows(terms, np.full(12, 1), np.arange(12), np.arange(12), out)
+    assert out[1].tobytes() == seq.tobytes() and not out[[0, 2]].any()
+
+    logs = [1.0] + [2.0 ** -24] * 11
+    m = port_pgm.DiscreteModel(type="MARKOV", cards=[2, 2], factors=[
+        port_pgm.Factor("pair", [0, 1], np.array([1.0, 2.0, 3.0, 0.5])),
+        *[port_pgm.Factor(f"u{j}", [0], np.exp(np.array([v, -3 * v]))) for j, v in
+          enumerate(logs)]])
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc]), "cpu")
+    (walked, dense, form), = [w for w in _site_walks(kst, 0, enc.cards) if len(w[1]) == 13]
+    assert len(walked) == 1 and walked[0][0].tobytes() == form[0].tobytes()
+    looked = np.stack([[tab[0] if rs.size == 0 else tab[r] for tab, rs, _ in dense]
+                       for r in range(2)])  # [blanket rows, incidences, K]
+    assert form[0].tobytes() != np.stack([_pairwise(x) for x in looked]).tobytes()
+    state = torch.zeros((1, kst["pal_oon"].shape[1], 8), dtype=torch.int32)
+    sw, cw = walk_window(kst, state.clone(), 9, 4, 2, True, 8)
+    sp, cp = window_plain(*[kst[k] for k in sweep.KERNEL_KEYS], state.clone(), 9, 4, 2, True, 8)
+    assert torch.equal(sw, sp) and torch.equal(cw, cp)

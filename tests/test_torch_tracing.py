@@ -142,7 +142,7 @@ RUNS = {
 def test_engine_spans_and_folded_sites(tmp_path, kind):
     """Every span of the kind's table, each child inside its parent; the
     site updates folded into the host totals equal those claimed, which
-    add up to ``RunResult.samples``."""
+    add up to ``RunResult.samples``, and those on merged tables too."""
     kw, names = RUNS[kind]
     res = _run(tmp_path, devices=["cpu"] * 4 if "mesh" in kind else None, **kw)
     assert set(res.spans) == names
@@ -166,6 +166,9 @@ def test_engine_spans_and_folded_sites(tmp_path, kind):
     assert c["sites.folded"] == res.samples > 0
     assert c["sites.main"] + c.get("sites.aux", 0) == res.samples
     assert ("sites.aux" in c) == (kind == "adaptive-split")
+    # every site of the 3x3 grid and of its collapse variants walks one
+    # merged table (a blanket of at most 4 binary vars)
+    assert c["sites.merged"] == res.samples
 
 
 def test_a_merge_that_drops_one_shard_reads_three_quarters(tmp_path, monkeypatch):
