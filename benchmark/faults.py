@@ -1,8 +1,9 @@
 """Faults planted under the timed path, to show that ``correct`` sees them.
 
-Each fault wraps the port's sweep (``grample_tpu_torch.ops.sweep.window``,
-which every group's window goes through on either route) and breaks one
-thing the cells' answers rest on:
+Each fault of :data:`FAULTS` wraps the port's sweep
+(``grample_tpu_torch.ops.sweep.window``, which every group's window goes
+through on either route) and breaks one thing the cells' answers rest
+on:
 
 * ``stuck``: every site's draw keeps its value; the state comes back
   unchanged, and the counts are those of that state every sweep;
@@ -10,6 +11,14 @@ thing the cells' answers rest on:
   where the window produces them;
 * ``half``: the counts of half the chains left out, so the estimate is
   the mean over the rest while the run still claims every site update.
+
+The fault of :data:`MESH_FAULTS` wraps the device mesh's count merge
+(``grample_tpu_torch.parallel.mesh.ShardedChainGroup._window_delta``),
+which only a cell whose mix shards the chains runs:
+
+* ``shard``: the last active shard's window counts left out of the host
+  sum, as if one card's exchange were lost, while the run still claims
+  its site updates.
 
     python3 -m benchmark.faults --fault half --workload <cell> --seed <n> --seconds <s>
 
@@ -70,15 +79,37 @@ def half(orig):
     return window
 
 
+def shard(orig):
+    """The mesh's window deltas, one a shard, with the last left out."""
+
+    def window_delta(self):
+        return orig(self)[:-1]
+
+    return window_delta
+
+
+#: faults of the sweep, which every cell can have
 FAULTS = {"stuck": stuck, "altered": altered, "half": half}
+#: faults of the device mesh's count merge, which a sharded cell can have
+MESH_FAULTS = {"shard": shard}
+
+
+def target(name: str) -> tuple:
+    """(object, attribute name, wrapper) of fault ``name``."""
+    if name in MESH_FAULTS:
+        from grample_tpu_torch.parallel.mesh import ShardedChainGroup
+
+        return ShardedChainGroup, "_window_delta", MESH_FAULTS[name]
+    from grample_tpu_torch.ops import sweep
+
+    return sweep, "window", FAULTS[name]
 
 
 def plant(name: str):
-    """Wrap the port's sweep in fault ``name``; returns the original."""
-    from grample_tpu_torch.ops import sweep
-
-    orig = sweep.window
-    sweep.window = FAULTS[name](orig)
+    """Wrap what fault ``name`` breaks in it; returns the original."""
+    owner, attr, wrap = target(name)
+    orig = getattr(owner, attr)
+    setattr(owner, attr, wrap(orig))
     return orig
 
 

@@ -11,8 +11,10 @@ Frozen copies of the repository's synthetic builders (``grid`` and
 tests cannot move the yardstick: ``grid`` draws as its original does;
 ``promedus_like`` replays its original's draws for the structure and the
 evidence, and draws the CPT values from ``--seed`` on their own.  A
-configuration's ``net`` entry names a builder of :data:`BUILDERS` and its
-parameters; the structure and the evidence of a net are fixed by the
+configuration's ``net`` entry names a builder and its parameters: one of
+:data:`BUILDERS`, else the ``build(seed, **params)`` of
+``benchmark/builders/<builder>.py``, so a net family comes in as a new
+file.  The structure and the evidence of a net are fixed by the
 configuration, and ``--seed`` draws only the table values.
 """
 
@@ -21,6 +23,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from benchmark import registry
 
 
 def seed_rng(seed: int) -> np.random.Generator:
@@ -86,10 +90,21 @@ def promedus_like(seed: int, structure_seed: int = 1, v: int = 916, window: int 
 BUILDERS = {"grid": grid, "promedus_like": promedus_like}
 
 
-def build(spec: dict, seed: int) -> dict:
+def builder(name: str, root: str = registry.ROOT):
+    """Builder ``name``: of :data:`BUILDERS`, else the ``build`` function of
+    ``<root>/benchmark/builders/<name>.py``."""
+    if name in BUILDERS:
+        return BUILDERS[name]
+    path = os.path.join(root, "benchmark", "builders", name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no net builder {name!r}: not in nets.BUILDERS, and no {path}")
+    return registry.load("builders", name, "build", root)
+
+
+def build(spec: dict, seed: int, root: str = registry.ROOT) -> dict:
     """The net of a configuration's ``net`` entry, tables drawn from ``seed``."""
     params = {k: x for k, x in spec.items() if k != "builder"}
-    return BUILDERS[spec["builder"]](seed, **params)
+    return builder(spec["builder"], root)(seed, **params)
 
 
 def uai_text(net: dict) -> str:

@@ -4,16 +4,20 @@ Nothing here names a cell, a configuration, a traffic mix or a metric:
 
 * ``configs[i]["file"]``: the configuration (its ``net`` and its sampler
   settings);
-* ``benchmark/traffic/<traffic>.json``: the traffic mix (sampler mode,
-  chains, chain layout);
+* ``benchmark/traffic/<traffic>.json``: the traffic mix, the engine's
+  flags (sampler mode, chains, chain layout, device mesh);
 * ``benchmark/workloads/<cell>.json``: the cell's limits for ``correct``;
 * ``benchmark/metrics/<metric>.py``: a reader, ``read(rec)`` -> a number
   or None, for every metric of either kind.  A quantity split by the
   end-to-end metric it moves (``<metric>.<part>``, reported by other
-  cells) is read by ``<metric>.py`` unless it has a file of its own.
+  cells) is read by ``<metric>.py`` unless it has a file of its own;
+* ``benchmark/builders/<builder>.py``: a net family's ``build(seed,
+  **params)``, for a configuration whose ``net`` names a builder that
+  ``nets.BUILDERS`` lacks (``nets.builder``).
 
-A later change adds a cell, a configuration, a traffic mix or a metric
-by adding files and entries, and edits none.
+A later change adds a cell, a configuration, a net builder, a traffic mix
+(any ``EngineConfig`` field, ``run.engine_config``) or a metric by adding
+files and entries, and edits none.
 """
 
 from __future__ import annotations
@@ -64,15 +68,18 @@ def config(name: str, root: str = ROOT) -> dict:
     return _read(os.path.join(root, entry["file"]))
 
 
+def load(subdir: str, name: str, attr: str, root: str = ROOT):
+    """``attr`` of the module file ``<root>/benchmark/<subdir>/<name>.py``."""
+    path = os.path.join(root, "benchmark", subdir, name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{subdir}_" + re.sub(r"\W", "_", name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return getattr(module, attr)
+
+
 def reader(metric: str, root: str = ROOT):
     """The ``read`` function of ``benchmark/metrics/<metric>.py``, or of
     the file of the quantity that ``<metric>`` splits."""
-    here = os.path.join(root, "benchmark", "metrics")
-    path = os.path.join(here, metric + ".py")
-    if not os.path.exists(path):
-        path = os.path.join(here, metric.split(".")[0] + ".py")
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + re.sub(r"\W", "_", metric),
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    own = os.path.exists(os.path.join(root, "benchmark", "metrics", metric + ".py"))
+    return load("metrics", metric if own else metric.split(".")[0], "read", root)

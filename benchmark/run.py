@@ -3,8 +3,8 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell is a net (``benchmark/configs``) under a traffic mix
-(``benchmark/traffic``): the sampler mode, chains and cards a user runs
-on it.  The run is one job of the port, ``grample_tpu_torch``:
+(``benchmark/traffic``): the sampler mode, chains, device mesh and cards
+a user runs on it.  The run is one job of the port, ``grample_tpu_torch``:
 
 1. the net's tables are drawn from ``--seed`` and written as UAI files
    under ``TMPDIR`` (not timed);
@@ -35,6 +35,7 @@ cache) points at ``.benchcache/home``; the CUDA build is the port's own
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -59,20 +60,32 @@ def forbidden_modules(modules=None) -> list:
     return sorted(names.intersection(FORBIDDEN))
 
 
+#: traffic keys that name an ``EngineConfig`` field by the CLI's flag
+RENAMES = {"vchains": "chains_per_variant"}
+#: ``EngineConfig`` fields the harness sets: from the run's arguments and
+#: the configuration, never from a traffic mix
+HARNESS_FIELDS = ("model_path", "device", "use_evidence", "use_solution", "burnin",
+                  "converge_window", "max_secs", "budget", "seed")
+
+
 def engine_config(cell: dict, path: str, seed: int, seconds: float, device: str):
     """The ``EngineConfig`` that ``cli.py sample`` builds from the cell's
-    flags."""
+    flags: every key of the traffic mix but ``why`` sets the field it names
+    (``vchains`` is ``chains_per_variant``); one that names no field, or a
+    field the harness sets, raises."""
     from grample_tpu_torch.sampler.engine import EngineConfig
 
-    conf, traffic = cell["config"], cell["traffic"]
+    conf = cell["config"]
+    flags = {RENAMES.get(k, k): x for k, x in cell["traffic"].items() if k != "why"}
+    fields = {f.name for f in dataclasses.fields(EngineConfig)} - set(HARNESS_FIELDS)
+    unknown = sorted(set(flags) - fields)
+    if unknown:
+        raise KeyError(f"traffic keys that set no EngineConfig field a mix may set: {unknown}")
     v = len(cell["net"]["cards"])
     return EngineConfig(
         model_path=path, device=device, use_evidence=True, use_solution=False,
-        sampler=traffic["sampler"], chains=traffic["chains"],
-        chains_per_variant=traffic["vchains"], chain_adds=traffic.get("chain_adds", 1),
         burnin=conf["burnin_sweeps"] * v, converge_window=conf["cwin_sweeps"] * v,
-        max_secs=float(seconds), budget="sampling", seed=int(seed) % (1 << 62) + 1,
-        split_group=traffic.get("split_group", "auto"))
+        max_secs=float(seconds), budget="sampling", seed=int(seed) % (1 << 62) + 1, **flags)
 
 
 def run_program(cell: dict, path: str, seed: int, seconds: float, trace: bool, t0: float,
@@ -96,6 +109,7 @@ def run_program(cell: dict, path: str, seed: int, seconds: float, trace: bool, t
         "result": result,
         "setup_s": mon.updates[-1][0] - t0 - result.runtime,
         "peak_bytes": max((torch.cuda.max_memory_allocated(d) for d in cards), default=0),
+        "burnin_peak_bytes": mon.burnin_peak,
         "adapt_s": mon.adapt_seconds(),
         "span": reduce_span(mon.prof, len(cards), mon.marks) if trace and cards else {},
         "span_sites": mon.updates[-1][1] - mon.updates[0][1],
@@ -174,7 +188,7 @@ def main(argv=None) -> int:
         os.environ[var] = os.path.join(CACHE, sub)
         os.makedirs(os.environ[var], exist_ok=True)
     cell = registry.cell(args.workload)
-    cell["net"] = nets.build(cell["config"]["net"], args.seed)
+    cell["net"] = nets.build(cell["config"]["net"], args.seed, cell.get("root", registry.ROOT))
     trace = bool(args.trace)
     with tempfile.TemporaryDirectory(prefix="bench-net-") as td:
         path = nets.write_uai(cell["net"], td, args.workload)

@@ -3,7 +3,9 @@ profiled span of a ``--trace 1`` run.
 
 The engine calls ``update`` after burn-in and at each status tick, the
 last time at the end of its loop.  :class:`SpanMonitor` keeps each call's
-host time and counters.  With ``profile`` set, ``torch.profiler`` records
+host time and counters, and at the first call the peak memory so far: the
+peak of set-up and burn-in, which the sizes set and the clock does not
+(no adapt step has run).  With ``profile`` set, ``torch.profiler`` records
 CUDA activity alone (no host ops, stacks or shapes, which would slow the
 host's ticks and so change the adapt schedule), kept in memory, from
 before the engine's set-up.  Every call and every engine log line
@@ -48,6 +50,7 @@ class SpanMonitor:
         self.marks = []  # the label of each marker, in the order enqueued
         self.prof = None
         self._vars = {"iterations": 0}
+        self.burnin_peak = 0  # max_memory_allocated over the cards at the first update
         if profile and self.devices:
             self.prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -56,6 +59,9 @@ class SpanMonitor:
     def update(self, **kw):
         self._vars.update(kw)
         self.updates.append((time.perf_counter(), int(self._vars["iterations"])))
+        if len(self.updates) == 1:
+            self.burnin_peak = max((torch.cuda.max_memory_allocated(d) for d in self.devices),
+                                   default=0)
         self._mark(TICK)
 
     def log(self, line: str):
