@@ -34,14 +34,23 @@ bytes the live work needs, not from the caps:
     that is 1024 threads with the lists staged once per SM: measured, the
     Promedus-shaped collapse variants run 1.7x faster so than in
     256-thread blocks, and faster than with nothing staged and six times
-    the resident warps.  The estimate counts shared memory and threads,
-    not registers: the kernel's launch bound lets every instance run
-    1024-thread blocks (at most 64 registers a thread), and at the 43 to
-    64 registers the instances take, an SM keeps 1024 to 1280 threads
-    resident, not 2048, at any width.  The rule was measured on binary
-    nets and, for full-card launches, on a 10x10 grid at card 8 (the
-    widest block is the fastest there too); other cards and shapes are
-    not measured;
+    the resident warps.  Up to card bound 8 the estimate counts shared
+    memory and threads, not registers: the kernel's launch bound lets
+    every instance run 1024-thread blocks (at most 64 registers a
+    thread), and at the 43 to 64 registers those instances take, an SM
+    keeps 1024 to 1280 threads resident, not 2048, at any width; measured
+    on binary nets and, for full-card launches, on a 10x10 grid at card 8
+    (the widest block is the fastest there too).  Above card bound 8 it
+    counts registers too (``resident_threads``: 1024 threads an SM in the
+    dense form), so every width keeps as many warps resident, and where
+    the tables stay in device memory it takes the width with the most
+    resident blocks an SM: a table row's latency then varies from warp to
+    warp (an L1 hit or not), and a block's place on the SM frees only when
+    its slowest warp ends.  Measured at card 16 (PERF.md): the 60-var
+    ObjectDetection-shaped net's full-card window runs 14 % faster in
+    32-thread blocks than in 1024-thread ones, and with the tables staged
+    (small nets, the gather form) the widest block stays within 0.5 % of
+    the fastest;
   - counts are one reduction without a return value per site into the
     zero-initialised count tensor (16-bit counters in shared memory were
     measured beside it and were slower: they cost resident warps).
@@ -72,8 +81,10 @@ MAX_CARD = 16
 #: a scope word of the compact lists holds a state row in 16 bits
 MAX_ROWS = MAX_DENSE_ROWS
 
-#: resident threads and shared memory of one SM, blocks it can hold
-SM_THREADS, SM_SMEM_BYTES, SM_BLOCKS = 2048, 233472, 32
+#: resident threads, shared memory and registers of one SM, blocks it can hold
+SM_THREADS, SM_SMEM_BYTES, SM_REGISTERS, SM_BLOCKS = 2048, 233472, 65536, 32
+#: card bounds above this are counted by registers (``resident_threads``)
+REGISTER_BOUND_CARD = 8
 #: SMs of the H100 SXM, on which ``launch_shapes`` compares plans
 SM_COUNT = 132
 #: chains (warps) per block of the site-parallel form
@@ -87,6 +98,16 @@ def max_threads(k: int, gather: bool) -> int:
     """The most threads a block of the kernel's instance for card bound
     ``k`` may have (its ``__launch_bounds__``)."""
     return 512 if gather and k > 8 else 1024
+
+
+def resident_threads(k: int, gather: bool) -> int:
+    """Threads of the instance for card bound ``k`` that an SM keeps
+    resident, counting registers above ``REGISTER_BOUND_CARD``: those
+    instances take the whole cap their launch bound allows (64 registers a
+    thread at 1024 threads: 63-64 in the dense form at card 16; 104-112 of
+    128 in the gather form at 512), so an SM holds ``max_threads`` of their
+    threads in blocks of any width.  Below it, threads alone are counted."""
+    return max_threads(k, gather) if k > REGISTER_BOUND_CARD else SM_THREADS
 
 
 def uses_gather(kst: dict) -> bool:
@@ -146,7 +167,8 @@ def _shapes(list_bytes: int, table_bytes: int, rows: int, k: int, gather: bool, 
         sbytes = threads // 32 * rows if sites else state_bytes(rows, k, threads)
         stage = _staging(sbytes, list_bytes, table_bytes)
         smem = sbytes + list_bytes * stage[0] + table_bytes * stage[1]
-        resident = min(SM_SMEM_BYTES // (smem + 1024), SM_THREADS // threads, SM_BLOCKS)
+        resident = min(SM_SMEM_BYTES // (smem + 1024), resident_threads(k, gather) // threads,
+                       SM_BLOCKS)
         if smem <= MAX_SMEM_BYTES and resident >= 1:
             yield threads, stage, sbytes, resident
 
@@ -188,7 +210,8 @@ def _plan(n, c, count, sm_count, sites, list_bytes, table_bytes, rows, k, gather
                                                     sites):
         chains = threads // 32 if sites else threads  # per block
         blocks = n * -(-c // chains)
-        key = (min(blocks, resident * sm_count) * (threads // 32), min(blocks, sm_count),
+        refill = resident if k > REGISTER_BOUND_CARD and not stage[1] else 0
+        key = (min(blocks, resident * sm_count) * (threads // 32), min(blocks, sm_count), refill,
                threads)
         if best is None or key > best[0]:
             best = (key, Plan(sites, threads, *stage, count, list_bytes, table_bytes, sbytes,
@@ -220,6 +243,15 @@ def occupancy(k: int, plan: Plan) -> dict:
     if err != 0:
         raise RuntimeError(f"gibbs_window_occupancy failed: CUDA error {err}")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "max_threads"), out))
+
+
+@functools.lru_cache(maxsize=256)
+def spills(k: int, plan: Plan, device) -> bool:
+    """Whether ``plan``'s kernel instance at card bound ``k`` keeps local
+    memory (register spills), as ``occupancy`` reports it on ``device``;
+    the runtime is asked once a plan."""
+    with torch.cuda.device(device):
+        return occupancy(k, plan)["local_bytes"] > 0
 
 
 def gibbs_window(kst: dict, state, seed: int, num_sweeps: int, half_point: int,

@@ -53,7 +53,8 @@ the mesh.
 **How the base class sees the tensors.**  ``ChainGroup`` touches its
 device tensors through a few small methods; this class replaces exactly
 those with loops over its shards (the hot ones: ``_advance_fn``,
-``_window_delta``, ``flush``, ``convergence``, ``_rb_index_rows``) or with
+``_window_delta``, ``flush``, ``convergence``, ``_rb_index_rows``,
+``_kernel_launches``) or with
 slot-wise writes (``_place``, ``_write_slots``).  ``state`` and
 ``halves`` are read-only properties that gather the shards to the host,
 for the rare readers (a checkpoint, a restack, a test); nothing on the
@@ -362,6 +363,12 @@ class ShardedChainGroup(ChainGroup):
             )
             sh.state[:na] = st
             sh.halves[:na] = hv
+
+    def _kernel_launches(self):
+        if self.route != "kernel":
+            return []
+        return [(sh.device, sh.v0, na, kst) for sh, na, kst in self.active_shards()
+                if sh.device.type == "cuda"]
 
     def warmup(self):
         if self.slot_cap == 0:

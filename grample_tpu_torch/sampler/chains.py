@@ -27,7 +27,7 @@ so a checkpoint that stores ``_step`` resumes bit for bit.
 Everything that touches the device tensors goes through a few small
 methods (``_place``, ``_write_slots``, ``_advance_fn``, ``_window_delta``,
 ``flush``, ``_slot_state``, ``_rb_index_rows``, ``_scaled``, ``warmup``,
-``restore_device_state``, ``convergence``): ``parallel.mesh.
+``restore_device_state``, ``convergence``, ``_kernel_launches``): ``parallel.mesh.
 ShardedChainGroup`` replaces exactly those to keep the tensors in shards
 on several devices, of one process or of several.
 
@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.metrics.psrf import chain_convergence
+from grample_tpu_torch.ops import gibbs_cuda
 from grample_tpu_torch.ops.layout import kernel_stack, merged_sites
 from grample_tpu_torch.ops.sweep import (
     advance_chains,
@@ -504,17 +505,43 @@ class ChainGroup:
         self.total_sweeps += sweeps
         # counted sites are deterministic: every grouped (free) var of an
         # active variant counts once per sweep per chain
-        taken = sweeps * self.cpv * sum(
-            int(mv.free_mask.sum()) for mv in self.variants
-        )
+        free = [int(mv.free_mask.sum()) for mv in self.variants]
+        taken = sweeps * self.cpv * sum(free)
         self.total_samples += taken
         self.tracer.add(self.sites_counter, taken)
         # those of them whose site walks a merged table of the kernel's
         # lists (on the CPU the plain version stands in for the kernel)
         self.tracer.add("sites.merged", sweeps * int(self.merged_chains[:self.num_variants].sum()))
+        self._count_launches(sweeps, free)
         if not defer:
             self.flush()
         return taken
+
+    def _kernel_launches(self):
+        """(device, first slot, slots, sweep tensors) of each launch of the
+        CUDA kernel that a window of the active prefix makes: none off the
+        card or on the ops route."""
+        if self.route != "kernel" or self.device.type != "cuda":
+            return []
+        nact = max(1, self.num_variants)
+        return [(self.device, 0, nact, {k: v[:nact] for k, v in self.kstack.items()})]
+
+    def _count_launches(self, sweeps: int, free: List[int]) -> None:
+        """Count a counted window's claimed site updates (``free``: each
+        variant's free vars) by the plan of the launch that makes them:
+        under ``sites.tables_global`` where the plan reads the compact
+        tables from device memory, under ``sites.spilled`` where its kernel
+        instance keeps local memory (0 where not, so both counters exist
+        once a launch ran the CUDA kernel; neither where the plain version
+        or the ops route runs)."""
+        for dev, v0, na, kst in self._kernel_launches():
+            plan = gibbs_cuda.plan_launch(
+                kst, self.local_chains, True,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            sites = sweeps * self.local_chains * sum(free[v0:v0 + na])
+            self.tracer.add("sites.tables_global", 0 if plan.stage_tables else sites)
+            spilled = gibbs_cuda.spills(kst["k_kmask"].shape[3], plan, dev)
+            self.tracer.add("sites.spilled", sites if spilled else 0)
 
     def flush(self) -> None:
         """Fold all pending window deltas into the host totals (one sync)."""

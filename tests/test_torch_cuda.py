@@ -146,6 +146,65 @@ def test_full_card_launch_at_wide_cards(cuda_device, card, count):
     _kernel_vs_plain([enc, enc], cuda_device, 131072, count)
 
 
+def _objdet_model(v, seed):
+    """The benchmark's ObjectDetection-shaped net (``objdet60``: cards
+    11-16, pairwise tables of up to 256 entries), or cut to ``v`` vars by
+    the same rules, as a port model with its evidence applied."""
+    from benchmark import nets, registry
+
+    spec = registry.config("objdet60")["net"]
+    net = (nets.build(spec, seed) if v == spec["v"] else nets.builder(spec["builder"])(
+        seed, structure_seed=spec["structure_seed"], v=v, drop=3, evidence={6: 4}))
+    m = port_pgm.DiscreteModel(type="MARKOV", cards=net["cards"], factors=[
+        port_pgm.Factor(f"f{i}", list(scope), table)
+        for i, (scope, table) in enumerate(net["factors"])])
+    m.apply_evidence(net["evidence"])
+    return m
+
+
+@pytest.mark.parametrize("count", [True, False])
+def test_card16_kernel_matches_plain_on_objdet(cuda_device, count):
+    """The card-16 instance of the kernel's plain (dense) form on a 12-var
+    objdet-shaped net of cards 11-16, 2 variants x 4096 chains: the rule's
+    pick, thread per chain and site-parallel, counted and uncounted,
+    against ``window_plain``."""
+    m = _objdet_model(12, 23)
+    enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
+    kst = sweep.sweep_tensors(port_encode.stack_variants([enc, enc]), "cpu")
+    assert kst["k_kmask"].shape[3] == 16 and not gibbs_cuda.uses_gather(kst)
+    _kernel_vs_plain([enc, enc], cuda_device, 4096, count)
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_launch_counters_on_card(cuda_device, mesh):
+    """Counted windows of the 60-var objdet net on the card, by a
+    ``ChainGroup`` and by a ``ShardedChainGroup`` on a 2x2 virtual mesh of
+    the card: every launch reads the compact tables from device memory, so
+    ``sites.tables_global`` equals the claimed updates, and
+    ``sites.spilled`` equals them where ``occupancy`` reports local memory
+    for the launch's plan and is 0 where it does not."""
+    m = _objdet_model(60, 7)
+    caps = port_encode.compute_caps(m, headroom_factors=0)
+    if mesh:
+        grid = chain_mesh(variant_ways=2, devices=[cuda_device] * 4)
+        g = ShardedChainGroup(m, 8192, 20, seed=3, caps=caps, mesh=grid)
+    else:
+        g = ChainGroup(m, 8192, 20, cuda_device, seed=3, caps=caps)
+    g.reserve(2)
+    g.add_variants([m, m])
+    taken = g.advance() + g.advance(defer=True)
+    g.flush()
+    counters = g.tracer.counters
+    assert counters["sites.main"] == counters["sites.folded"] == taken > 0
+    assert counters["sites.tables_global"] == taken
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plans = {gibbs_cuda.plan_launch(kst, g.local_chains, True, sms)
+             for _, _, _, kst in g._kernel_launches()}
+    assert len(plans) == 1 and len(g._kernel_launches()) == (4 if mesh else 1)
+    spilled = gibbs_cuda.occupancy(16, plans.pop())["local_bytes"] > 0
+    assert counters["sites.spilled"] == (taken if spilled else 0)
+
+
 def _smoke_encs(net):
     """Two variants of the smoke run's 10x10 grid, or of its
     Promedus-shaped net, at their plain caps."""
