@@ -11,15 +11,24 @@
 // version of the same function is
 // grample_tpu_torch/ops/gibbs_torch.py::window_plain.
 //
-// What bounds it on this card: operations issued per site, and the
-// number of warps an SM can keep resident to hide the latency of the
-// dependent shared-memory loads between them (list word -> state word ->
-// table row).  Bytes are not the limit: a window reads its state once and
-// writes it once.  The reference's layout is dense rectangles padded to
-// the caps of the whole group (every slot row, every incidence slot,
-// every scope slot), which a vector unit sweeps for free and a GPU thread
-// pays for slot by slot: on a Promedus-shaped collapse encoding fewer
-// than 1 row in 4 is a site and 1 scope slot in 80 has a stride.  So:
+// What bounds it on this card: operations issued per site, the number of
+// warps an SM can keep resident to hide the latency of the dependent
+// shared-memory loads between them (list word -> state word -> table
+// row), and, in a counted window, the count stream.  A window reads its
+// state once and writes it once, but a counted draw is a 4-byte
+// reduction into counts[N, 2, K, NSLOT, C], and one half's rows of every
+// live site and outcome are live at once: 203 MB for a 10x10 grid at
+// 2 x 131072 chains, 912 MB for a 916-var Promedus-shaped net at
+// 2 x 65536, far over the 50 MB L2.  So each reduction is a
+// read-modify-write of device memory: a warp's binary draws touch one
+// 128-byte row segment per outcome drawn, 16 bytes of traffic a counted
+// update where every outcome was reduced (about 2 TB/s at 1.2e11 updates
+// a second), 8 where outcome 0's is derived (below).  The reference's
+// layout is dense rectangles padded to the caps of the whole group (every
+// slot row, every incidence slot, every scope slot), which a vector unit
+// sweeps for free and a GPU thread pays for slot by slot: on a
+// Promedus-shaped collapse encoding fewer than 1 row in 4 is a site and 1
+// scope slot in 80 has a stride.  So:
 //
 //  - The kernel walks the compact work lists of ops/layout.py: live
 //    sites only, each site's live incidences only, each incidence's live
@@ -56,6 +65,11 @@
 //    at the half point and at the end, were measured beside it and were
 //    slower on every shape: they cost more resident warps than the
 //    reductions cost memory traffic (PERF.md).
+//  - Only outcomes 1..K-1 are reduced per draw.  A chain draws every live
+//    site once a sweep, so outcome 0's count in a half is the half's
+//    sweeps less the other outcomes' counts, exactly, whatever the site's
+//    in-card bits; derive_rest stores it once a window, after the sweeps.
+//    On a binary net that halves the count stream.
 //
 //  - A launch too small to fill the card with a thread per chain (the
 //    split group's aux launches: a few variants x 256 chains) takes the
@@ -255,6 +269,48 @@ __device__ __forceinline__ int draw_site(float (&lg)[KMAX], uint32_t km, int k,
   return newv;
 }
 
+// Outcome 0's counts of count slot `slot` of one chain (cn: the chain's
+// counts of its variant, at half 0, outcome 0, slot 0), in each half that
+// counted a sweep: the half's n0 or n1 sweeps less the slot's counts at
+// outcomes 1..k-1, which only this thread reduced into those addresses
+// (each (slot, chain) belongs to one thread, or in the site-parallel form
+// to one lane), so a load after its own reductions reads their sum (same
+// thread, same address), and the store needs no atomic.  __ldcg reads L2,
+// where the reductions land.
+__device__ __forceinline__ void derive_rest(int32_t* cn, int slot, int nslot, size_t C, int k,
+                                            int n0, int n1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int sweeps = h == 0 ? n0 : n1;
+    if (sweeps == 0) continue;
+    int rest = sweeps;
+    for (int kk = 1; kk < k; ++kk)
+      rest -= __ldcg(cn + static_cast<size_t>((h * k + kk) * nslot + slot) * C);
+    cn[static_cast<size_t>(h * k * nslot + slot) * C] = rest;
+  }
+}
+
+// Where the window's end writes a chain's live-site states: the variant's
+// live-site count, its kernel-row map and the chain's state column.  The
+// variant index is read again from its special register, and the count
+// from the lists' header, rather than held across the sweeps: held, the
+// two spilled at card bound 16 in the counted instances.
+struct WriteBack {
+  int sites;
+  const int32_t* rows;
+  int32_t* state;
+};
+
+__device__ __forceinline__ WriteBack write_back(const Params& p, int c) {
+  int n;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(n));
+  const auto* header = reinterpret_cast<const volatile int32_t*>(
+      p.c_lists + static_cast<size_t>(n) * p.lw);
+  const int sites = header[H_SITES];
+  return {sites, p.c_rows + static_cast<size_t>(n) * p.rw,
+          p.state + static_cast<size_t>(n) * p.nvp * static_cast<size_t>(p.c_total) + c};
+}
+
 // Blocks are up to 1024 threads wide whatever the card bound: the launch
 // bound keeps the 16 logits of the widest instance within 64 registers.
 // It asks for one resident block, not two: aiming at two, the compiler
@@ -279,7 +335,6 @@ gibbs_window_kernel(const Params p) {
   const size_t C = static_cast<size_t>(p.c_total);
 
   const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
-  const int L = p.c_lists[static_cast<size_t>(n) * p.lw + H_SITES];
   const int R = p.c_lists[static_cast<size_t>(n) * p.lw + H_ROWS];
   uint8_t* sp = smem;
   const int32_t* lists;
@@ -309,8 +364,8 @@ gibbs_window_kernel(const Params p) {
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
                         257u * static_cast<uint32_t>(c / p.cb);
-  const size_t nslot_c = static_cast<size_t>(p.nc) * p.g * C;
-  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot_c + c;
+  const int nslot = p.nc * p.g;
+  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot * C + c;
 
   for (int si = 0; si < p.num_sweeps; ++si) {
     const int hsel = si >= p.half_point ? 1 : 0;
@@ -367,14 +422,24 @@ gibbs_window_kernel(const Params p) {
         uint32_t* word = sm + (site >> RSH) * T + tid;
         const int sh = (site & RMASK) * BITS;
         *word = (*word & ~(VMASK << sh)) | (static_cast<uint32_t>(newv) << sh);
-        if (COUNT)
-          atomicAdd(cn + (static_cast<size_t>(hsel) * k + newv) * nslot_c +
-                        static_cast<size_t>(ci * p.g + gi) * C, 1);
+        if (COUNT && newv != 0)
+          atomicAdd(cn + static_cast<size_t>((hsel * k + newv) * nslot + ci * p.g + gi) * C, 1);
       }
     }
   }
-  for (int s = 0; s < L; ++s)
-    st[rows[s] * C] = static_cast<int32_t>((sm[(s >> RSH) * T + tid] >> ((s & RMASK) * BITS)) & VMASK);
+  if (COUNT) {
+    const int n0 = min(max(p.half_point, 0), p.num_sweeps);
+    int site = 0;
+    for (int ci = 0; ci < p.nc; ++ci)
+      for (const int site_end = ls.color_end[ci]; site < site_end; ++site) {
+        const int gi = ls.sites[site].x & 0xFFFF;
+        derive_rest(cn, ci * p.g + gi, nslot, C, k, n0, p.num_sweeps - n0);
+      }
+  }
+  const WriteBack wb = write_back(p, c);
+  for (int s = 0; s < wb.sites; ++s)
+    wb.state[wb.rows[s] * C] =
+        static_cast<int32_t>((sm[(s >> RSH) * T + tid] >> ((s & RMASK) * BITS)) & VMASK);
 }
 
 // The site-parallel form, for launches too small to fill the card with
@@ -398,7 +463,6 @@ gibbs_window_sites_kernel(const Params p) {
   const size_t C = static_cast<size_t>(p.c_total);
 
   const int32_t* rows = p.c_rows + static_cast<size_t>(n) * p.rw;
-  const int L = p.c_lists[static_cast<size_t>(n) * p.lw + H_SITES];
   const int R = p.c_lists[static_cast<size_t>(n) * p.lw + H_ROWS];
   uint8_t* sp = smem;
   const int32_t* lists;
@@ -418,8 +482,8 @@ gibbs_window_sites_kernel(const Params p) {
   const uint32_t lane_mix = static_cast<uint32_t>(c % p.cb) * 0x85EBCA6Bu;
   const uint32_t cell = p.seed + 65537u * static_cast<uint32_t>(n) +
                         257u * static_cast<uint32_t>(c / p.cb);
-  const size_t nslot_c = static_cast<size_t>(p.nc) * p.g * C;
-  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot_c + c;
+  const int nslot = p.nc * p.g;
+  int32_t* cn = p.counts + static_cast<size_t>(n) * 2 * k * nslot * C + c;
 
   for (int si = 0; si < p.num_sweeps; ++si) {
     const int hsel = si >= p.half_point ? 1 : 0;
@@ -470,15 +534,27 @@ gibbs_window_sites_kernel(const Params p) {
         const int newv = draw_site<KMAX>(lg, km, k, gi, lane_mix, counter);
         // no site of this color reads another: write at once
         sm[site] = static_cast<uint8_t>(newv);
-        if (COUNT)
-          atomicAdd(cn + (static_cast<size_t>(hsel) * k + newv) * nslot_c +
-                        static_cast<size_t>(ci * p.g + gi) * C, 1);
+        if (COUNT && newv != 0)
+          atomicAdd(cn + static_cast<size_t>((hsel * k + newv) * nslot + ci * p.g + gi) * C, 1);
       }
       __syncwarp();
       site0 = site_end;
     }
   }
-  for (int s = lane; s < L; s += 32) st[rows[s] * C] = sm[s];
+  if (COUNT) {  // each lane its own sites, as in every sweep
+    const int n0 = min(max(p.half_point, 0), p.num_sweeps);
+    int site0 = 0;
+    for (int ci = 0; ci < p.nc; ++ci) {
+      const int site_end = ls.color_end[ci];
+      for (int site = site0 + lane; site < site_end; site += 32) {
+        const int gi = ls.sites[site].x & 0xFFFF;
+        derive_rest(cn, ci * p.g + gi, nslot, C, k, n0, p.num_sweeps - n0);
+      }
+      site0 = site_end;
+    }
+  }
+  const WriteBack wb = write_back(p, c);
+  for (int s = lane; s < wb.sites; s += 32) wb.state[wb.rows[s] * C] = sm[s];
 }
 
 using Kernel = void (*)(const Params);

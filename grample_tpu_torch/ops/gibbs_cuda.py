@@ -13,9 +13,10 @@ gather bank (``uses_gather``) launches the kernel's gather form, which
 walks the gather incidences after the dense ones and adds their sum to
 the dense sum (the reference's ``gibbs_xla.py:129-141``); its plain
 version is ``ops.gibbs_bank.window_ops``.  On this card a
-window is bound by the operations issued per site and by how many warps
-an SM keeps resident, so the launch is shaped (``plan_launch``) from the
-bytes the live work needs, not from the caps:
+window is bound by the operations issued per site, by how many warps an
+SM keeps resident and, counted, by its count stream (below), so the
+launch is shaped (``plan_launch``) from the bytes the live work needs,
+not from the caps:
 
   - form: one thread per (variant, chain), unless that would give an SM
     fewer than ``SITE_FORM_WARPS`` warps (``N * C`` below 33792 on 132
@@ -51,9 +52,15 @@ bytes the live work needs, not from the caps:
     32-thread blocks than in 1024-thread ones, and with the tables staged
     (small nets, the gather form) the widest block stays within 0.5 % of
     the fastest;
-  - counts are one reduction without a return value per site into the
-    zero-initialised count tensor (16-bit counters in shared memory were
-    measured beside it and were slower: they cost resident warps).
+  - counts are one reduction without a return value per draw of an
+    outcome other than 0 into the zero-initialised count tensor (16-bit
+    counters in shared memory were measured beside it and were slower:
+    they cost resident warps); outcome 0's count of each live site is
+    stored once after the sweeps, each half's sweeps less the other
+    outcomes' counts.  The count rows of a half outgrow L2 on full-card
+    launches (a 10x10 grid at 2 x 131072 chains holds 203 MB of them), so
+    each reduction is a read-modify-write of device memory, and a binary
+    window's count stream is half what one reduction a draw made it.
 
 Packing the state (1, 2 or 4 bits a row in the thread-per-chain form) is
 what keeps a Promedus-shaped net's 256-thread blocks at 29 KB of state.

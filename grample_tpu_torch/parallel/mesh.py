@@ -396,7 +396,8 @@ class ShardedChainGroup(ChainGroup):
         """Fold the pending window deltas into the host totals: one sum
         of the local deltas, reduced over the mesh's processes once; the
         reduced sum's site updates count under the tracer's
-        ``sites.folded``."""
+        ``sites.folded``, and its outcome-0 updates under
+        ``sites.rest_derived`` where the shards ran the CUDA kernel."""
         if not self._pending:
             return
         acc = np.zeros(self.totals.shape, dtype=np.int64)
@@ -406,6 +407,8 @@ class ShardedChainGroup(ChainGroup):
         self._pending.clear()
         acc = self._reduce(acc)
         self.tracer.add("sites.folded", acc[:, :self.caps.num_vars].sum())
+        if self._kernel_launches():
+            self.tracer.add("sites.rest_derived", acc[:, :self.caps.num_vars, 0].sum())
         self.totals += acc
 
     # ---- estimation ------------------------------------------------------

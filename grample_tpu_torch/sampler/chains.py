@@ -556,10 +556,14 @@ class ChainGroup:
     def _fold(self, delta, nact: int) -> None:
         """Add one ``_window_delta`` of ``nact`` active slots to ``totals``,
         counting its site updates (real vars, every outcome) under the
-        tracer's ``sites.folded``."""
+        tracer's ``sites.folded`` and, where the CUDA kernel ran the window,
+        those at outcome 0 under ``sites.rest_derived`` (the kernel derives
+        their counts once a window instead of reducing each draw)."""
         d = delta.cpu().numpy().astype(np.float64)
         d[nact:] = 0.0
         self.tracer.add("sites.folded", d[:, :self.caps.num_vars].sum())  # exact below 2**53
+        if self._kernel_launches():
+            self.tracer.add("sites.rest_derived", d[:, :self.caps.num_vars, 0].sum())
         self.totals += d
 
     def restore_device_state(self, state, halves):

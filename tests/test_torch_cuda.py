@@ -67,14 +67,16 @@ def _long_chain(v=2000):
     return torch_models.chain_model(port_pgm, seed=21, v=v)
 
 
-def _kernel_vs_plain(encs, device, c, count=True):
-    """One window of 3 sweeps (half point 1) through the plain version
-    (``window_ops`` where the encoding has a gather bank) and through
-    every form of the kernel (the form the wrapper's rule picks, thread
-    per chain, site-parallel), from the same state: at most 0.1 %
-    of sites differ after it, tail rows stay, and (counted) counts agree
-    wherever the states agree, each half's total is chains x sweeps x live
-    rows, and padding rows count nothing."""
+def _kernel_vs_plain(encs, device, c, count=True, half_point=1):
+    """One window of 3 sweeps (half point 1 unless given; 0 and 3 leave a
+    half without sweeps) through the plain version (``window_ops`` where
+    the encoding has a gather bank) and through every form of the kernel
+    (the form the wrapper's rule picks, thread per chain, site-parallel),
+    from the same state: at most 0.1 % of sites differ after it, tail rows
+    stay, and (counted) counts agree wherever the states agree, outcome
+    0's (which the kernel derives after the sweeps) among them, each half's
+    total is chains x sweeps x live rows, every live row of every chain
+    counts its half's sweeps, and padding rows count nothing."""
     kst = sweep.sweep_tensors(port_encode.stack_variants(encs), device)
     args = [kst[k] for k in sweep.KERNEL_KEYS]
     n, caps = len(encs), encs[0].caps
@@ -84,15 +86,16 @@ def _kernel_vs_plain(encs, device, c, count=True):
     init = np.floor(rng.random((n, nvp, c)) * cards[:, :, None])
     state = torch.as_tensor(init.astype(np.int32), device=device)
     if gibbs_cuda.uses_gather(kst):
-        sp, cp = window_ops(kst, state.clone(), -77, 3, 1, count, 512)
+        sp, cp = window_ops(kst, state.clone(), -77, 3, half_point, count, 512)
     else:
-        sp, cp = window_plain(*args, state.clone(), -77, 3, 1, count, 512)
+        sp, cp = window_plain(*args, state.clone(), -77, 3, half_point, count, 512)
     live = kst["k_kmask"].bool().any(dim=3).reshape(n, nslot)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for form in (None, False, True):  # the rule's pick, thread per chain, site-parallel
         plan = None if form is None else gibbs_cuda.plan_launch(kst, c, count, sms, form)
         before = gibbs_cuda.gibbs_window.launches
-        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, 1, count, 512, plan)
+        sk, ck = gibbs_cuda.gibbs_window(kst, state.clone(), -77, 3, half_point, count, 512,
+                                         plan)
         torch.cuda.synchronize()
         assert gibbs_cuda.gibbs_window.launches == before + 1
         assert (plan or gibbs_cuda.plan_launch(kst, c, count, sms)).gather \
@@ -104,9 +107,13 @@ def _kernel_vs_plain(encs, device, c, count=True):
             continue
         agree = (sk[:, :nslot] == sp[:, :nslot]).all(dim=0)
         assert torch.equal(ck[:, :, :, agree], cp[:, :, :, agree]), form
-        for half, sweeps in ((0, 1), (1, 2)):
+        assert torch.equal(ck[:, :, 0][:, :, agree], cp[:, :, 0][:, :, agree]), form
+        for half, sweeps in ((0, half_point), (1, 3 - half_point)):
             want = c * sweeps * int(live.sum())
             assert ck[:, half].sum().item() == cp[:, half].sum().item() == want, form
+            per_row = ck[:, half].sum(dim=1)  # [N, NSLOT, C]
+            assert torch.equal(per_row, (sweeps * live.to(torch.int32))[:, :, None]
+                               .expand_as(per_row)), form
         assert ck.sum(dim=(1, 2, 4))[~live].sum().item() == 0
 
 
@@ -121,11 +128,13 @@ def test_long_lists_stay_in_device_memory(cuda_device):
     _kernel_vs_plain([enc, enc], cuda_device, 8192)
 
 
+@pytest.mark.parametrize("half_point", [0, 1, 3])
 @pytest.mark.parametrize("name", ["grid4_evid", "grid3_card3_evid", "rand8_card4", "long_chain"])
-def test_kernel_matches_plain_on_card(cuda_device, name):
+def test_kernel_matches_plain_on_card(cuda_device, name, half_point):
     m = _long_chain() if name == "long_chain" else torch_models.build(port_pgm, name)
     enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
-    _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096)
+    _kernel_vs_plain([enc, enc], cuda_device, 1024 if name == "long_chain" else 4096,
+                     half_point=half_point)
 
 
 @pytest.mark.parametrize("count", [True, False])
@@ -162,17 +171,17 @@ def _objdet_model(v, seed):
     return m
 
 
-@pytest.mark.parametrize("count", [True, False])
-def test_card16_kernel_matches_plain_on_objdet(cuda_device, count):
+@pytest.mark.parametrize("count,half_point", [(True, 0), (True, 1), (True, 3), (False, 1)])
+def test_card16_kernel_matches_plain_on_objdet(cuda_device, count, half_point):
     """The card-16 instance of the kernel's plain (dense) form on a 12-var
     objdet-shaped net of cards 11-16, 2 variants x 4096 chains: the rule's
-    pick, thread per chain and site-parallel, counted and uncounted,
-    against ``window_plain``."""
+    pick, thread per chain and site-parallel, counted (at half points 0, 1
+    and 3) and uncounted, against ``window_plain``."""
     m = _objdet_model(12, 23)
     enc = port_encode.encode_model(m, port_encode.compute_caps(m, headroom_factors=0))
     kst = sweep.sweep_tensors(port_encode.stack_variants([enc, enc]), "cpu")
     assert kst["k_kmask"].shape[3] == 16 and not gibbs_cuda.uses_gather(kst)
-    _kernel_vs_plain([enc, enc], cuda_device, 4096, count)
+    _kernel_vs_plain([enc, enc], cuda_device, 4096, count, half_point)
 
 
 @pytest.mark.parametrize("mesh", [False, True])
@@ -197,6 +206,8 @@ def test_launch_counters_on_card(cuda_device, mesh):
     counters = g.tracer.counters
     assert counters["sites.main"] == counters["sites.folded"] == taken > 0
     assert counters["sites.tables_global"] == taken
+    rest = g.totals[:, :caps.num_vars, 0].sum()
+    assert counters["sites.rest_derived"] == rest and 0 < rest < taken
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plans = {gibbs_cuda.plan_launch(kst, g.local_chains, True, sms)
              for _, _, _, kst in g._kernel_launches()}
@@ -652,12 +663,13 @@ def _gather_encs(case):
     return [port_encode.encode_model(v, caps) for v in variants]
 
 
-@pytest.mark.parametrize("count", [True, False])
+@pytest.mark.parametrize("count,half_point", [(True, 0), (True, 1), (True, 3), (False, 1)])
 @pytest.mark.parametrize("case", [*torch_models.GATHER_CASES, "promedus_head", "grid_card16"])
-def test_gather_form_matches_window_ops_on_card(cuda_device, case, count):
+def test_gather_form_matches_window_ops_on_card(cuda_device, case, count, half_point):
     """The kernel's gather form, in every form, against ``window_ops`` on
-    the card (``_kernel_vs_plain``), at 4096 chains a variant."""
-    _kernel_vs_plain(_gather_encs(case), cuda_device, 4096, count)
+    the card (``_kernel_vs_plain``), at 4096 chains a variant, counted at
+    half points 0, 1 and 3 and uncounted."""
+    _kernel_vs_plain(_gather_encs(case), cuda_device, 4096, count, half_point)
 
 
 def test_gather_form_draws_as_the_dense_kernel(cuda_device):

@@ -135,7 +135,10 @@ class _Walker:
 
 
 def walk_window(kst, state, seed, num_sweeps, half_point, count, cb):
-    """One window from the compact lists, as the CUDA kernel walks them."""
+    """One window from the compact lists, as the CUDA kernel walks them:
+    a draw counts its outcome only where it is not 0, and each live
+    site's outcome-0 count in a half is the half's sweeps less its other
+    outcomes' counts, stored once after the sweeps."""
     n, nc, G, K = kst["k_kmask"].shape
     C = state.shape[2]
     counts = torch.zeros((n, 2, K, nc * G, C), dtype=torch.int32) if count else None
@@ -158,8 +161,18 @@ def walk_window(kst, state, seed, num_sweeps, half_point, count, cb):
                     newv = draw(lg[None], mk, unif)[0]
                     w.sm[site] = newv
                     if count:
-                        counts[ni, hsel, newv.long(), ci * G + gi, chain] += 1
+                        drawn = newv != 0
+                        counts[ni, hsel, newv[drawn].long(), ci * G + gi, chain[drawn]] += 1
                     site += 1
+        if count:
+            n0 = min(max(half_point, 0), num_sweeps)
+            for ci in range(nc):
+                for site in range(int(w.color_end[ci - 1]) if ci else 0, int(w.color_end[ci])):
+                    slot = ci * G + (int(w.sites[site, 0]) & 0xFFFF)
+                    for h, sweeps in enumerate((n0, num_sweeps - n0)):
+                        if sweeps:
+                            c = counts[ni, h, :, slot]  # [K, C]
+                            c[0] = sweeps - c[1:].sum(dim=0)
         state[ni][torch.as_tensor(w.rows[:w.n_sites].astype(np.int64))] = w.sm[:w.n_sites]
     return state, counts
 
@@ -222,6 +235,26 @@ def test_walker_matches_window_ops(name, count, cb):
     live = kst["k_kmask"].bool().any(dim=3).reshape(len(sw), -1)  # [N, NSLOT]
     per_slot = co.sum(dim=(1, 2))  # [N, NSLOT, C]
     assert torch.equal(per_slot, (3 * live.to(torch.int32))[:, :, None].expand_as(per_slot))
+
+
+@pytest.mark.parametrize("half_point", [0, 2, 3, 5])
+@pytest.mark.parametrize("name", ["grid4_evid", "grid3_card3_evid", "rand8_card4",
+                                  torch_models.GATHER_CASES[0]])
+def test_walker_derives_rest_at_every_half_point(name, half_point):
+    """Outcome 0's counts derived after the sweeps (the kernel's
+    ``derive_rest``) equal the plain version's counted ones, bit for bit,
+    with the half point at the window's start, inside it, at its end and
+    past it (a half that counts no sweep keeps 0)."""
+    kst, state = _inputs(name, chains=16)
+    plain = (window_ops if gibbs_cuda.uses_gather(kst) else
+             lambda kst, *a: window_plain(*[kst[k] for k in sweep.KERNEL_KEYS], *a))
+    sw, cw = walk_window(kst, state.clone(), 13, 3, half_point, True, 8)
+    sp, cp = plain(kst, state.clone(), 13, 3, half_point, True, 8)
+    assert torch.equal(sw, sp) and torch.equal(cw, cp)
+    live = kst["k_kmask"].bool().any(dim=3).reshape(len(sw), -1, 1).to(torch.int32)
+    per_half = cw.sum(dim=2)  # [N, 2, NSLOT, C]
+    for h, sweeps in enumerate((min(half_point, 3), 3 - min(half_point, 3))):
+        assert torch.equal(per_half[:, h], (sweeps * live).expand_as(per_half[:, h]))
 
 
 def _gather_live(kst, i):

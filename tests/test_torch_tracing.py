@@ -15,7 +15,9 @@ import pytest
 
 import grample_tpu_torch.pgm.discrete as port_pgm
 from grample_tpu_torch import tracing
-from grample_tpu_torch.parallel.mesh import ShardedChainGroup
+from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
+from grample_tpu_torch.pgm.encode import compute_caps
+from grample_tpu_torch.sampler.chains import ChainGroup
 from grample_tpu_torch.sampler.engine import Engine, EngineConfig
 from grample_tpu_torch.tracing import Tracer
 from grample_tpu_torch.uai.writer import write_model
@@ -179,6 +181,36 @@ def test_a_merge_that_drops_one_shard_reads_three_quarters(tmp_path, monkeypatch
     res = _run(tmp_path, devices=["cpu"] * 4, sampler="simple", mesh="2x2")
     assert res.counters["sites.main"] == res.samples
     assert res.counters["sites.folded"] / res.samples == 0.75
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("mesh", [False, True], ids=["group", "mesh2x2"])
+def test_rest_derived_counts_outcome_zero_where_the_kernel_ran(mesh, kernel):
+    """``sites.rest_derived`` (the draws whose count the CUDA kernel
+    derives once a window, outcome 0's) is absent where the plain version
+    ran the windows, as on the CPU, since it counts every outcome; where
+    a group's windows ran the kernel (here pretended) it is the outcome-0
+    updates folded into the totals, real vars only."""
+    m = torch_models.MODELS["grid4_evid"][0](port_pgm)
+    caps = compute_caps(m, headroom_factors=0)
+    if mesh:
+        g = ShardedChainGroup(m, 32, 8, seed=3, caps=caps,
+                              mesh=chain_mesh(variant_ways=2, devices=["cpu"] * 4))
+    else:
+        g = ChainGroup(m, 32, 8, "cpu", seed=3, caps=caps)
+    g.reserve(2)
+    g.add_variants([m, m])
+    taken = g.advance(defer=True) + g.advance(defer=True)
+    if kernel:
+        g._kernel_launches = lambda: [None]
+    g.flush()
+    c = g.tracer.counters
+    assert c["sites.folded"] == taken > 0
+    if not kernel:
+        assert "sites.rest_derived" not in c
+        return
+    rest = g.totals[:, :caps.num_vars, 0].sum()
+    assert c["sites.rest_derived"] == rest and 0 < rest < taken
 
 
 @pytest.mark.parametrize("split", ["off", "on"])
