@@ -770,7 +770,8 @@ def mesh_on_cards(ctx):
                   and group.mesh.devices[sh.vi][sh.ci] == sh.device,
                   f"8, {what}: shard ({sh.vi}, {sh.ci}) tensors on {sh.state.device}, "
                   f"{sh.halves.device}, not {sh.device}")
-            check(all(t.device == sh.device for t in group.kstack[sh.vi][sh.device].values()),
+            row = group.kstack[sh.vi].tensors[sh.device]
+            check(all(t.device == sh.device for t in row.values()),
                   f"8, {what}: a sweep tensor of row {sh.vi} is not on {sh.device}")
         names = sorted(str(sh.device) for sh in group.shards)
         check(names == [f"cuda:{i}" for i in range(group.mesh.size)],
@@ -1362,7 +1363,8 @@ def main() -> int:
           flush=True)
     shard_errs = []
     seed_3d = window_seed(SEED, sharded._step + 1)  # the next window's
-    for sh, na, kst_sh in sharded.active_shards():
+    for sh, _, _, na, stack in sharded.launches():
+        kst_sh = stack.cut(sh.device, na)
         name = f"3d shard ({sh.vi}, {sh.ci}): {na} x {sharded.local_chains} chains"
         describe_launch(torch, kst_sh, sharded.local_chains, True, name)
         st_sh = kernel_order(torch, kst_sh, sh.state[:na])
@@ -1372,7 +1374,8 @@ def main() -> int:
             name, seed=shard_seed(seed_3d, sh.v0, sh.c0 // sharded.cb),
             forms=KERNEL_FORMS[:2]).values()))
     # one shard's tensors, timed in phase 5
-    sh0, na0, shard_kst = next(iter(sharded.active_shards()))
+    sh0, _, _, na0, stack0 = next(iter(sharded.launches()))
+    shard_kst = stack0.cut(sh0.device, na0)
     shard_state0 = kernel_order(torch, shard_kst, sh0.state[:na0])
     shard_n_free = int(models[0].free_mask.sum())
     with tempfile.TemporaryDirectory() as td:

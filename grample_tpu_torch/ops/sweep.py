@@ -25,6 +25,15 @@ compact work lists (``ops.layout``) that the kernel walks, since on the
 card a window is bound by the operations and shared-memory loads it makes
 per slot visited, and most slots of the rectangles are padding.
 
+A chain group's sweep tensors are a ``SweepStack``: this module is their
+only owner, and the samplers (``sampler.chains``, ``parallel.mesh``) know
+neither their format nor the kernel's facts.  It builds and places them,
+writes new slots, scales them for the tempered burn-in, advances a slot
+prefix by one window, and counts a counted window's launch counters
+(``sites.merged``, ``sites.tables_global``, ``sites.spilled``); the
+outcome whose counts the kernel derives is ``REST_OUTCOME``, which
+``rest_derived`` counts in a folded delta (``sites.rest_derived``).
+
 The kernel route has one code path for every table width.  The
 reference kernel has two lookup forms (an unrolled select chain up to 32 rows, a counted loop up
 to ``PAL_OA_MAX`` = 256, ``gibbs_pallas.py:347-367``) and stops at 256
@@ -44,7 +53,7 @@ import torch.nn.functional as fnn
 from grample_tpu_torch.ops import gibbs_cuda
 from grample_tpu_torch.ops.gibbs_bank import window_ops
 from grample_tpu_torch.ops.gibbs_torch import window_plain
-from grample_tpu_torch.ops.layout import COMPACT_KEYS, kernel_stack
+from grample_tpu_torch.ops.layout import COMPACT_KEYS, kernel_stack, merged_sites
 from grample_tpu_torch.pgm.encode import BASE_DENSE_LIMIT
 
 #: hash lane width (the reference kernel's chain block ``cb``) used when a
@@ -203,3 +212,80 @@ def advance_chains(kst: dict, state, halves, seed: int, num_sweeps: int,
         mapped = torch.gather(counts, 3, soo.expand(n, 2, k, v1, c))
         halves = halves + mapped.permute(0, 1, 4, 3, 2)
     return state_out, halves
+
+
+#: the outcome whose count the CUDA kernel derives once a window, each
+#: half's sweeps less the other outcomes' counts (``derive_rest`` in
+#: ``csrc/gibbs_window.cu``), instead of reducing every draw of it
+REST_OUTCOME = 0
+
+
+def rest_derived(delta: np.ndarray, num_vars: int) -> int:
+    """The updates of a folded count delta [N, V+1, K] of the real vars
+    (below ``num_vars``) at ``REST_OUTCOME``: those whose counts a window
+    on the kernel derived (the tracer's ``sites.rest_derived``)."""
+    return int(delta[:, :num_vars, REST_OUTCOME].sum())
+
+
+class SweepStack:
+    """A chain group's sweep tensors, placed on ``devices``, and the host
+    facts about them worked out when they are built or written.
+
+    ``tensors[device]`` is the ``sweep_tensors`` dict on that device (the
+    chain shards of a mesh row share one copy a device); ``merged`` [N]
+    holds each slot's live sites on merged tables (the ``c_lists``
+    headers, 0 on the ops route); ``card`` is the card bound; ``kernel``
+    says whether its windows run the CUDA kernel (the kernel route on CUDA
+    devices)."""
+
+    def __init__(self, stack: dict, route: str, devices):
+        host = kernel_stack(stack, route == "kernel")
+        self.route = route
+        self.tensors = {dev: to_device(host, dev) for dev in map(torch.device, devices)}
+        self.merged = merged_sites(host)
+        self.card = host["k_kmask"].shape[3]
+        self.kernel = route == "kernel" and all(d.type == "cuda" for d in self.tensors)
+
+    def write(self, slots, stack: dict) -> None:
+        """Write the variants of the stacked encoding ``stack``
+        (``stack_variants`` output) into slots ``slots``, on every
+        device."""
+        fresh = kernel_stack(stack, self.route == "kernel")
+        for dev, kst in self.tensors.items():
+            write_slots(kst, slots, to_device(fresh, dev))
+        self.merged[slots] = merged_sites(fresh)
+
+    def cut(self, device, n: int) -> dict:
+        """The tensors on ``device`` of the first ``n`` slots."""
+        return {k: v[:n] for k, v in self.tensors[device].items()}
+
+    def advance(self, device, state, halves, seed: int, num_sweeps: int, half_point: int,
+                count: bool, cb: int, beta: float = 1.0):
+        """``advance_chains`` of the slot prefix that ``state`` [n, C, V+1]
+        holds on ``device``, its log tables times ``beta`` where that is
+        below 1 (``scale_tables``)."""
+        kst = self.cut(device, state.shape[0])
+        if beta < 1.0:
+            kst = scale_tables(kst, beta)
+        return advance_chains(kst, state, halves, seed, num_sweeps, half_point, count=count,
+                              cb=cb, route=self.route)
+
+    def launch_counts(self, device, n: int, chains: int, sweeps: int, free) -> dict:
+        """The launch counters of a counted window of ``sweeps`` sweeps
+        over the first ``n`` slots of ``device``, ``chains`` chains a slot,
+        whose real variants have ``free`` free vars each: ``sites.merged``,
+        the claimed updates whose site walks a merged table; where the
+        window runs the kernel, ``sites.tables_global`` and
+        ``sites.spilled``, the claimed updates where the launch's plan
+        (``gibbs_cuda.plan_launch``) reads the compact tables from device
+        memory and where its kernel instance keeps local memory (0
+        where not)."""
+        out = {"sites.merged": sweeps * chains * int(self.merged[:len(free)].sum())}
+        if self.kernel:
+            plan = gibbs_cuda.plan_launch(
+                self.cut(device, n), chains, True,
+                torch.cuda.get_device_properties(device).multi_processor_count)
+            sites = sweeps * chains * sum(free)
+            out["sites.tables_global"] = 0 if plan.stage_tables else sites
+            out["sites.spilled"] = sites if gibbs_cuda.spills(self.card, plan, device) else 0
+        return out

@@ -50,18 +50,23 @@ snapshot carries ``cb``).  The reference instead folds the shard's grid
 position into its key (``mesh.py:131-136``), so its draws change with
 the mesh.
 
-**How the base class sees the tensors.**  ``ChainGroup`` touches its
-device tensors through a few small methods; this class replaces exactly
-those with loops over its shards (the hot ones: ``_advance_fn``,
-``_window_delta``, ``flush``, ``convergence``, ``_rb_index_rows``,
-``_kernel_launches``) or with
-slot-wise writes (``_place``, ``_write_slots``).  ``state`` and
-``halves`` are read-only properties that gather the shards to the host,
-for the rare readers (a checkpoint, a restack, a test); nothing on the
-hot path reads them, and an assignment raises.  ``kstack`` is, per grid
-row, ``{device: sweep tensors}`` for this process's devices of the row:
-the chain shards of a row share the row's tensors, one copy per device,
-made when the row changes and not per window.
+**What this class replaces.**  ``ChainGroup`` issues every window, and
+counts its launches, over the launches that ``launches`` yields; here one
+per shard that holds a slot of the active prefix, each shard the holder
+of its own ``state`` and ``halves``, so the base class's window loop,
+warm-up, tempered burn-in, launch counters, ``_window_delta`` (one delta
+per active shard, in shard order) and ``flush`` (their sum, reduced over
+the processes by ``_reduce``) serve both classes.  What is left here is
+the geometry: the slot-wise placement (``_place``, ``_write_slots``,
+``_scatter``), the reduction, the host reads (``state``, ``halves``,
+``_slot_state``, ``_rb_index_rows``) and the PSRF moments.  ``state``
+and ``halves`` are read-only properties that gather the shards to the
+host, for the rare readers (a checkpoint, a restack, a test); nothing on
+the hot path reads them, and an assignment raises.  ``kstack`` is, per
+grid row, the row's ``ops.sweep.SweepStack`` on this process's devices of
+the row (None for a row of other processes): the chain shards of a row
+share the row's tensors, one copy per device, made when the row changes
+and not per window.
 
 A device may appear several times in a mesh (``chain_mesh(devices=...)``):
 its shards then run one after the other on one stream.  That virtual mesh
@@ -87,16 +92,9 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.metrics.psrf import convergence_moments, psrf_from_moments
-from grample_tpu_torch.ops.layout import kernel_stack, merged_sites
-from grample_tpu_torch.ops.sweep import (
-    advance_chains,
-    hash_block,
-    scale_tables,
-    to_device,
-    write_slots,
-)
+from grample_tpu_torch.ops.sweep import SweepStack, hash_block
 from grample_tpu_torch.parallel import distributed
-from grample_tpu_torch.sampler.chains import ChainGroup, _rb_indices
+from grample_tpu_torch.sampler.chains import ChainGroup, _rb_indices, shard_seed  # noqa: F401
 
 VARIANT_AXIS = "variants"
 CHAIN_AXIS = "chains"
@@ -170,14 +168,6 @@ def chain_mesh(n_devices: Optional[int] = None, variant_ways: int = 0,
     return ChainMesh(grid(devs), None if ranks is None else grid(list(ranks)[:n]))
 
 
-def shard_seed(seed: int, v0: int, block0: int) -> int:
-    """The int32 seed that makes a shard starting at variant ``v0`` and
-    chain block ``block0`` draw what the unsharded window seeded ``seed``
-    draws there (see the module doc)."""
-    x = (int(seed) + 65537 * int(v0) + 257 * int(block0)) & 0xFFFFFFFF
-    return x - (1 << 32) if x >= (1 << 31) else x
-
-
 @dataclasses.dataclass
 class Shard:
     """One device's block of slots and chains."""
@@ -238,16 +228,15 @@ class ShardedChainGroup(ChainGroup):
         """``arr`` summed over the mesh's processes (one process: as is)."""
         return arr if self.mesh.ranks is None else distributed.allreduce_sum(arr)
 
-    def active_shards(self):
-        """(shard, active slots, the row's sweep tensors cut to them) for
-        every shard of this process that holds a slot of the active
-        prefix."""
+    def launches(self):
+        """(shard, first slot, first chain, active slots, the row's sweep
+        stack) for every shard of this process that holds a slot of the
+        active prefix."""
         nact = max(1, self.num_variants)
         for sh in self.shards:
             na = min(nact - sh.v0, self.local_slots)
             if na > 0:
-                kst = self.kstack[sh.vi][sh.device]
-                yield sh, na, {k: v[:na] for k, v in kst.items()}
+                yield sh, sh.v0, sh.c0, na, self.kstack[sh.vi]
 
     # ---- the whole tensors, for the rare readers -------------------------
     def _gather(self, name: str, inner: tuple, tail: tuple):
@@ -290,18 +279,11 @@ class ShardedChainGroup(ChainGroup):
         self._scatter(torch.as_tensor(state), None)
         nl = self.local_slots
         self.kstack = []
-        merged = np.zeros(self.slot_cap, dtype=np.int64)
         for vi in range(self.mesh.shape[VARIANT_AXIS]):
-            devs = dict.fromkeys(sh.device for sh in self._row(vi))
-            row = {}
-            if devs:  # the rows of other processes stay empty
-                kst = kernel_stack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
-                                   self.route == "kernel")
-                row = {dev: to_device(kst, dev) for dev in devs}
-                merged[vi * nl:(vi + 1) * nl] = (merged_sites(kst) * self.local_chains
-                                                 * len(self._row(vi)))
-            self.kstack.append(row)
-        self.merged_chains = self._reduce(merged)  # each shard on one process
+            devs = list(dict.fromkeys(sh.device for sh in self._row(vi)))
+            self.kstack.append(  # the rows of other processes stay None
+                SweepStack({k: v[vi * nl:(vi + 1) * nl] for k, v in stack.items()},
+                           self.route, devs) if devs else None)
 
     def _scatter(self, state, halves) -> None:
         """Rebuild this process's shards from whole tensors (any device);
@@ -321,23 +303,16 @@ class ShardedChainGroup(ChainGroup):
 
     def _write_slots(self, slots, stack, state: np.ndarray) -> None:
         nl, cl = self.local_slots, self.local_chains
-        merged = np.zeros(len(slots), dtype=np.int64)
         for vi in range(self.mesh.shape[VARIANT_AXIS]):
             sel = [i for i, s in enumerate(slots) if s // nl == vi]
             if not sel:
                 continue
             loc = [slots[i] - vi * nl for i in sel]
-            if stack is not None and self.kstack[vi]:
-                fresh = kernel_stack({k: v[sel] for k, v in stack.items()},
-                                     self.route == "kernel")
-                for dev, kst in self.kstack[vi].items():
-                    write_slots(kst, loc, to_device(fresh, dev))
-                merged[sel] = merged_sites(fresh) * cl * len(self._row(vi))
+            if stack is not None and self.kstack[vi] is not None:
+                self.kstack[vi].write(loc, {k: v[sel] for k, v in stack.items()})
             for sh in self._row(vi):
                 sh.state[loc] = torch.as_tensor(
                     np.ascontiguousarray(state[sel][:, sh.c0:sh.c0 + cl]), device=sh.device)
-        if stack is not None:
-            self.merged_chains[slots] = self._reduce(merged)
 
     def restore_device_state(self, state, halves):
         """Checkpointed tensors [Ncap, ...] (any device or numpy) go back
@@ -348,68 +323,6 @@ class ShardedChainGroup(ChainGroup):
             raise ValueError(f"tensors of {state.shape[0]} slots for a group of "
                              f"{self.slot_cap}")
         self._scatter(state, halves)
-
-    # ---- advancing -------------------------------------------------------
-    def _advance_fn(self, sweeps: int, half: int, count: bool, fresh: bool = False):
-        seed = self._next_seed()
-        if fresh:
-            for sh in self.shards:
-                sh.halves.zero_()
-        for sh, na, kst in self.active_shards():
-            st, hv = advance_chains(
-                kst, sh.state[:na], sh.halves[:na],
-                shard_seed(seed, sh.v0, sh.c0 // self.cb),
-                sweeps, half, count=count, cb=self.cb, route=self.route,
-            )
-            sh.state[:na] = st
-            sh.halves[:na] = hv
-
-    def _kernel_launches(self):
-        if self.route != "kernel":
-            return []
-        return [(sh.device, sh.v0, na, kst) for sh, na, kst in self.active_shards()
-                if sh.device.type == "cuda"]
-
-    def warmup(self):
-        if self.slot_cap == 0:
-            return
-        step = self._step
-        saved = [(sh.state.clone(), sh.halves.clone()) for sh in self.shards]
-        self._advance_fn(1, 0, count=True)
-        self._advance_fn(1, 1, count=False)
-        for sh, (state, halves) in zip(self.shards, saved):
-            sh.halves.sum().item()  # sync: wait out first-launch overheads
-            sh.state, sh.halves = state, halves
-        self._step = step
-
-    def _scaled(self, kstack, beta: float):
-        return [{dev: scale_tables(kst, beta) for dev, kst in row.items()}
-                for row in kstack]
-
-    def _window_delta(self):
-        """[(first slot, counts summed over the shard's chains
-        [n_active, V+1, K] int64, on the shard's device)]."""
-        return [(sh.v0, sh.halves[:na].sum(dim=(1, 2)))
-                for sh, na, _ in self.active_shards()]
-
-    def flush(self) -> None:
-        """Fold the pending window deltas into the host totals: one sum
-        of the local deltas, reduced over the mesh's processes once; the
-        reduced sum's site updates count under the tracer's
-        ``sites.folded``, and its outcome-0 updates under
-        ``sites.rest_derived`` where the shards ran the CUDA kernel."""
-        if not self._pending:
-            return
-        acc = np.zeros(self.totals.shape, dtype=np.int64)
-        for delta, _nact in self._pending:
-            for v0, d in delta:
-                acc[v0:v0 + d.shape[0]] += d.cpu().numpy()
-        self._pending.clear()
-        acc = self._reduce(acc)
-        self.tracer.add("sites.folded", acc[:, :self.caps.num_vars].sum())
-        if self._kernel_launches():
-            self.tracer.add("sites.rest_derived", acc[:, :self.caps.num_vars, 0].sum())
-        self.totals += acc
 
     # ---- estimation ------------------------------------------------------
     def _rb_index_rows(self, states, slots, rest, strides) -> np.ndarray:
@@ -438,7 +351,7 @@ class ShardedChainGroup(ChainGroup):
         v = self.caps.num_vars
         vdim, cdim = self.mesh.shape[VARIANT_AXIS], self.mesh.shape[CHAIN_AXIS]
         per = np.zeros((vdim * cdim, 2 * v + 1), dtype=np.float32)  # by grid position
-        for sh, na, _ in self.active_shards():
+        for sh, _v0, _c0, na, _ in self.launches():
             dev = sh.device
             h = sh.halves[:na, :, :, :v, :]  # [na, 2, c_local, V, K]
             m_chains = na * self.local_chains

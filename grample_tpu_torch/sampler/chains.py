@@ -24,12 +24,18 @@ group's aux group takes RB donor snapshots from its main group's states
 (seed, step) (``window_seed``), as the reference's ``fold_in(key, step)``,
 so a checkpoint that stores ``_step`` resumes bit for bit.
 
-Everything that touches the device tensors goes through a few small
-methods (``_place``, ``_write_slots``, ``_advance_fn``, ``_window_delta``,
-``flush``, ``_slot_state``, ``_rb_index_rows``, ``_scaled``, ``warmup``,
-``restore_device_state``, ``convergence``, ``_kernel_launches``): ``parallel.mesh.
-ShardedChainGroup`` replaces exactly those to keep the tensors in shards
-on several devices, of one process or of several.
+The sweep tensors are an ``ops.sweep.SweepStack``, which alone knows
+their format and the kernel's facts.  A window is issued in one place,
+``_advance_fn``, over the launches that ``launches`` yields (slot holder,
+first slot, first chain, active slots, sweep stack): one here, over the
+group's own tensors.  ``advance`` counts the launch counters and
+``flush`` folds the pending deltas, reduced by ``_reduce`` (the identity
+here).  ``parallel.mesh.ShardedChainGroup`` keeps its tensors in shards
+on several devices, of one process or of several, and replaces only the
+geometry: placement (``_place``, ``_write_slots``,
+``restore_device_state``), ``launches``, ``_reduce``, the host reads
+(``state``, ``halves``, ``_slot_state``, ``_rb_index_rows``) and
+``convergence``.
 
 Not ported: the reference's TPU workarounds (slot chunking, counted
 sub-windows, the compile-error fallback).
@@ -43,16 +49,12 @@ import numpy as np
 import torch
 
 from grample_tpu_torch.metrics.psrf import chain_convergence
-from grample_tpu_torch.ops import gibbs_cuda
-from grample_tpu_torch.ops.layout import kernel_stack, merged_sites
 from grample_tpu_torch.ops.sweep import (
-    advance_chains,
+    SweepStack,
     check_supported,
     hash_block,
+    rest_derived,
     route_for,
-    scale_tables,
-    to_device,
-    write_slots,
 )
 from grample_tpu_torch.pgm.discrete import DiscreteModel
 from grample_tpu_torch.pgm.encode import (
@@ -102,6 +104,15 @@ def window_seed(seed: int, step: int) -> int:
     return word - (1 << 32) if word >= (1 << 31) else word
 
 
+def shard_seed(seed: int, v0: int, block0: int) -> int:
+    """The int32 seed that makes a launch starting at variant ``v0`` and
+    chain block ``block0`` draw what the whole window seeded ``seed``
+    draws there (``parallel.mesh``'s module doc); ``seed`` itself at
+    (0, 0)."""
+    x = (int(seed) + 65537 * int(v0) + 257 * int(block0)) & 0xFFFFFFFF
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -121,13 +132,8 @@ class ChainGroup:
     #: (``advance``); a split group's aux group counts under ``sites.aux``
     sites_counter = "sites.main"
 
-    #: per slot, its live sites on merged tables (``ops.layout``) times its
-    #: chains over the whole group, set where its sweep tensors are built
-    #: (``advance`` counts ``sites.merged`` from it)
-    merged_chains = np.zeros(0, dtype=np.int64)
-
     #: device tensors, built by ``_place`` at the first restack
-    kstack = None  # kernel-order sweep tensors [Ncap, ...]
+    kstack = None  # the sweep tensors [Ncap, ...] (``ops.sweep.SweepStack``)
     state = None  # [Ncap, C, V+1] int32
     halves = None  # [Ncap, 2, C, V+1, K] int32
 
@@ -173,9 +179,10 @@ class ChainGroup:
         self.totals: Optional[np.ndarray] = None  # host f64 [Ncap, V+1, K]
         self.total_samples = 0  # counted site updates across all chains
         self.total_sweeps = 0
-        # deferred window deltas: (device [Ncap, V+1, K] int64, n_active)
-        # pairs not yet folded into ``totals`` — the engine dispatches many
-        # windows without a host sync per window
+        # deferred windows not yet folded into ``totals``: each its
+        # ``_window_delta`` (left on the devices) and its ``sites.merged``
+        # updates — the engine dispatches many windows without a host sync
+        # per window
         self._pending: List[tuple] = []
         # Rao-Blackwell mixture (see rb_accumulate): conditional tables by
         # var; decayed snapshot sums, weights and undecayed counts keyed
@@ -349,9 +356,7 @@ class ChainGroup:
         axis Ncap) and the fresh states ``state`` [Ncap, C, V+1], over
         which the slots held so far keep their states; the window halves
         start at zero."""
-        host = kernel_stack(stack, self.route == "kernel")
-        self.kstack = to_device(host, self.device)
-        self.merged_chains = merged_sites(host) * self.cpv
+        self.kstack = SweepStack(stack, self.route, [self.device])
         new_state = torch.as_tensor(state, device=self.device)
         if self.state is not None:
             n = min(self.state.shape[0], self.slot_cap)
@@ -369,9 +374,7 @@ class ChainGroup:
         restack, which placed them already) and their states ``state``
         [n, C, V+1]."""
         if stack is not None:
-            fresh = kernel_stack(stack, self.route == "kernel")
-            write_slots(self.kstack, slots, to_device(fresh, self.device))
-            self.merged_chains[slots] = merged_sites(fresh) * self.cpv
+            self.kstack.write(slots, stack)
         self.state[slots] = torch.as_tensor(state, device=self.device)
 
     def add_variant(self, model: DiscreteModel, burn_sweeps: int = 0,
@@ -426,19 +429,26 @@ class ChainGroup:
         return slots
 
     # ---- advancing -------------------------------------------------------
-    def _advance_fn(self, sweeps: int, half: int, count: bool, fresh: bool = False):
-        """Advance the ACTIVE slot prefix by one window; ``fresh`` zeroes
-        the window halves first."""
-        if fresh:
-            self.halves.zero_()
-        nact = max(1, self.num_variants)
-        st, hv = advance_chains(
-            {k: v[:nact] for k, v in self.kstack.items()},
-            self.state[:nact], self.halves[:nact], self._next_seed(),
-            sweeps, half, count=count, cb=self.cb, route=self.route,
-        )
-        self.state[:nact] = st
-        self.halves[:nact] = hv
+    def launches(self):
+        """(slot holder, first slot, first chain, active slots, sweep stack)
+        of each launch that a window of the active slot prefix makes: the
+        holder's ``state``, ``halves`` and ``device`` are the launch's."""
+        yield self, 0, 0, max(1, self.num_variants), self.kstack
+
+    def _advance_fn(self, sweeps: int, half: int, count: bool, fresh: bool = False,
+                    beta: float = 1.0):
+        """Advance the ACTIVE slot prefix by one window, each launch seeded
+        by ``shard_seed`` from the window's seed; ``fresh`` zeroes the
+        window halves first, ``beta`` scales the log tables."""
+        seed = self._next_seed()
+        for h, v0, c0, na, stack in self.launches():
+            if fresh:
+                h.halves.zero_()
+            st, hv = stack.advance(h.device, h.state[:na], h.halves[:na],
+                                   shard_seed(seed, v0, c0 // self.cb), sweeps, half, count,
+                                   self.cb, beta)
+            h.state[:na] = st
+            h.halves[:na] = hv
 
     def warmup(self):
         """Build and first-launch the sweep (one counted and one uncounted
@@ -447,18 +457,20 @@ class ChainGroup:
         if self.slot_cap == 0:
             return
         step = self._step
-        state, halves = self.state.clone(), self.halves.clone()
+        held = [(h, h.state.clone(), h.halves.clone()) for h, *_ in self.launches()]
         self._advance_fn(1, 0, count=True)
         self._advance_fn(1, 1, count=False)
-        self.halves.sum().item()  # sync: wait out first-launch overheads
-        self.state, self.halves = state, halves
+        for h, state, halves in held:
+            h.halves.sum().item()  # sync: wait out first-launch overheads
+            h.state, h.halves = state, halves
         self._step = step
 
-    def burn(self, sweeps: int):
-        """Uncounted sweeps for all chains (burn-in)."""
+    def burn(self, sweeps: int, beta: float = 1.0):
+        """Uncounted sweeps for all chains (burn-in), on the log tables
+        times ``beta``."""
         if sweeps <= 0 or self.slot_cap == 0:
             return
-        self._advance_fn(int(sweeps), int(sweeps), count=False)
+        self._advance_fn(int(sweeps), int(sweeps), count=False, beta=beta)
         self.total_sweeps += sweeps
 
     def burn_annealed(self, sweeps: int, stages: int = ANNEAL_STAGES):
@@ -475,20 +487,9 @@ class ChainGroup:
             return
         stages = max(1, min(int(stages), int(sweeps)))
         per = sweeps // stages
-        stack0 = self.kstack
-        try:
-            for i in range(stages):
-                beta = (i + 1.0) / stages
-                n = per + (sweeps - per * stages if i == stages - 1 else 0)
-                # scale only the log-potential tables; the rest is structural
-                self.kstack = stack0 if beta >= 1.0 else self._scaled(stack0, beta)
-                self.burn(n)
-        finally:
-            self.kstack = stack0
-
-    def _scaled(self, kstack, beta: float):
-        """``kstack`` with its log tables times ``beta``."""
-        return scale_tables(kstack, beta)
+        for i in range(stages):
+            n = per + (sweeps - per * stages if i == stages - 1 else 0)
+            self.burn(n, (i + 1.0) / stages)
 
     def advance(self, sweeps: Optional[int] = None, defer: bool = False) -> int:
         """Advance all chains one convergence window (counted).
@@ -497,11 +498,12 @@ class ChainGroup:
         counts into the running totals, and returns site updates taken.
         ``defer=True`` leaves the window's count delta on the device
         (``flush`` folds it into the host totals later), so the engine can
-        launch many windows back to back without a host sync.
+        launch many windows back to back without a host sync.  Each
+        launch's counters (``SweepStack.launch_counts``) are counted here,
+        but ``sites.merged``, which ``flush`` reduces with the deltas.
         """
         sweeps = self.cw if sweeps is None else int(sweeps)
         self._advance_fn(sweeps, sweeps // 2, count=True, fresh=True)
-        self._pending.append((self._window_delta(), self.num_variants))
         self.total_sweeps += sweeps
         # counted sites are deterministic: every grouped (free) var of an
         # active variant counts once per sweep per chain
@@ -509,62 +511,51 @@ class ChainGroup:
         taken = sweeps * self.cpv * sum(free)
         self.total_samples += taken
         self.tracer.add(self.sites_counter, taken)
-        # those of them whose site walks a merged table of the kernel's
-        # lists (on the CPU the plain version stands in for the kernel)
-        self.tracer.add("sites.merged", sweeps * int(self.merged_chains[:self.num_variants].sum()))
-        self._count_launches(sweeps, free)
+        merged = 0
+        for h, v0, _c0, na, stack in self.launches():
+            counts = stack.launch_counts(h.device, na, self.local_chains, sweeps,
+                                         free[v0:v0 + na])
+            merged += counts.pop("sites.merged")
+            for name, n in counts.items():
+                self.tracer.add(name, n)
+        self._pending.append((self._window_delta(), merged))
         if not defer:
             self.flush()
         return taken
 
-    def _kernel_launches(self):
-        """(device, first slot, slots, sweep tensors) of each launch of the
-        CUDA kernel that a window of the active prefix makes: none off the
-        card or on the ops route."""
-        if self.route != "kernel" or self.device.type != "cuda":
-            return []
-        nact = max(1, self.num_variants)
-        return [(self.device, 0, nact, {k: v[:nact] for k, v in self.kstack.items()})]
+    def _window_delta(self):
+        """[(first slot, counts summed over the launch's chains
+        [active slots, V+1, K] int64, on its device)], one per launch."""
+        return [(v0, h.halves[:na].sum(dim=(1, 2))) for h, v0, _c0, na, _ in self.launches()]
 
-    def _count_launches(self, sweeps: int, free: List[int]) -> None:
-        """Count a counted window's claimed site updates (``free``: each
-        variant's free vars) by the plan of the launch that makes them:
-        under ``sites.tables_global`` where the plan reads the compact
-        tables from device memory, under ``sites.spilled`` where its kernel
-        instance keeps local memory (0 where not, so both counters exist
-        once a launch ran the CUDA kernel; neither where the plain version
-        or the ops route runs)."""
-        for dev, v0, na, kst in self._kernel_launches():
-            plan = gibbs_cuda.plan_launch(
-                kst, self.local_chains, True,
-                torch.cuda.get_device_properties(dev).multi_processor_count)
-            sites = sweeps * self.local_chains * sum(free[v0:v0 + na])
-            self.tracer.add("sites.tables_global", 0 if plan.stage_tables else sites)
-            spilled = gibbs_cuda.spills(kst["k_kmask"].shape[3], plan, dev)
-            self.tracer.add("sites.spilled", sites if spilled else 0)
+    def _reduce(self, arr: np.ndarray) -> np.ndarray:
+        """``arr`` summed over the processes of the group (one: as is)."""
+        return arr
 
     def flush(self) -> None:
-        """Fold all pending window deltas into the host totals (one sync)."""
-        for delta, nact in self._pending:
-            self._fold(delta, nact)
+        """Fold the pending windows into the host totals (one sync): their
+        deltas and ``sites.merged`` updates summed, reduced by ``_reduce``
+        once, then counted under ``sites.merged``, ``sites.folded`` (every
+        outcome of the real vars) and, where the launches run the CUDA
+        kernel, ``sites.rest_derived`` (``ops.sweep.rest_derived``).  The
+        totals stay exact: integer counts below 2**53."""
+        if not self._pending:
+            return
+        acc = np.zeros(self.totals.size + 1, dtype=np.int64)
+        deltas = acc[:-1].reshape(self.totals.shape)
+        for window, merged in self._pending:
+            acc[-1] += merged
+            for v0, d in window:
+                deltas[v0:v0 + d.shape[0]] += d.cpu().numpy()
         self._pending.clear()
-
-    def _window_delta(self):
-        """The last window's counts summed over chains, left on the device."""
-        return self.halves.sum(dim=(1, 2))  # [Ncap, V+1, K] int64
-
-    def _fold(self, delta, nact: int) -> None:
-        """Add one ``_window_delta`` of ``nact`` active slots to ``totals``,
-        counting its site updates (real vars, every outcome) under the
-        tracer's ``sites.folded`` and, where the CUDA kernel ran the window,
-        those at outcome 0 under ``sites.rest_derived`` (the kernel derives
-        their counts once a window instead of reducing each draw)."""
-        d = delta.cpu().numpy().astype(np.float64)
-        d[nact:] = 0.0
-        self.tracer.add("sites.folded", d[:, :self.caps.num_vars].sum())  # exact below 2**53
-        if self._kernel_launches():
-            self.tracer.add("sites.rest_derived", d[:, :self.caps.num_vars, 0].sum())
-        self.totals += d
+        acc = self._reduce(acc)  # one collective on a mesh of several processes
+        deltas = acc[:-1].reshape(self.totals.shape)
+        v = self.caps.num_vars
+        self.tracer.add("sites.merged", acc[-1])
+        self.tracer.add("sites.folded", deltas[:, :v].sum())
+        if any(stack.kernel for *_, stack in self.launches()):
+            self.tracer.add("sites.rest_derived", rest_derived(deltas, v))
+        self.totals += deltas
 
     def restore_device_state(self, state, halves):
         """Place checkpointed chain state [Ncap, C, V+1] and window halves

@@ -427,7 +427,7 @@ def test_caps_growth_in_adaptive_group_keeps_totals():
     g.advance(defer=True)
     g.advance(defer=True)
     assert len(g._pending) == 2
-    want = g.totals[:2] + sum(d.numpy() for d, _ in g._pending)[:2]
+    want = g.totals[:2] + sum(d.numpy() for window, _ in g._pending for _, d in window)[:2]
     caps = g.caps
     variant, _ = port_collapse.collapse_var(m, 0)  # 64-row tables: caps grow
     g.add_variant(variant)

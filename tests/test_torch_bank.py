@@ -255,10 +255,11 @@ def test_ops_route_marginals(name, mode):
     m = _model(port_pgm, name)
     caps = card17(_caps(port_encode, m, mode))
     g = ChainGroup(m, 512, 128, device="cpu", caps=caps, seed=11)
-    assert g.route == "ops" and "c_lists" not in (g.kstack or {})
+    assert g.route == "ops" and "c_lists" not in (g.kstack.tensors[g.device] if g.kstack
+                                                  else {})
     assert "max card 17" in sweep.kernel_refusal(caps)
     g.add_variant(m)
-    assert set(sweep.COMPACT_KEYS).isdisjoint(g.kstack)
+    assert set(sweep.COMPACT_KEYS).isdisjoint(g.kstack.tensors[g.device])
     g.burn(32)
     g.advance()
     got = g.merged_marginals()[:, :m.max_card]
@@ -307,7 +308,7 @@ def test_sharded_equals_unsharded_on_the_ops_route(drive):
     assert gibbs_bank.window_ops.launches > before
     _assert_equal(g, p)
     for row in g.kstack:
-        assert all(set(sweep.COMPACT_KEYS).isdisjoint(kst) for kst in row.values())
+        assert all(set(sweep.COMPACT_KEYS).isdisjoint(kst) for kst in row.tensors.values())
 
 
 @pytest.mark.parametrize("drive", ["plain", "annealed", "collapse"])
@@ -327,7 +328,7 @@ def test_sharded_equals_unsharded_on_gather_caps(drive):
     want = sweep.sweep_tensors(port_encode.stack_variants(
         p.encs + [p.encs[0]] * (p.slot_cap - len(p.encs))), "cpu")
     for vi, row in enumerate(g.kstack):
-        for kst in row.values():
+        for kst in row.tensors.values():
             assert gibbs_cuda.uses_gather(kst)
             for key in sweep.COMPACT_KEYS:
                 got, w = kst[key], want[key][vi * nl:(vi + 1) * nl]
@@ -361,12 +362,12 @@ def test_group_burn_annealed_on_the_ops_route():
     groups = [ChainGroup(m, 64, 8, device="cpu", caps=caps, seed=2) for _ in range(2)]
     for g in groups:
         g.add_variant(m)
-    tables = groups[0].kstack["tables"].clone()
+    tables = groups[0].kstack.tensors[groups[0].device]["tables"].clone()
     groups[0].burn_annealed(8, stages=4)
     for _ in range(4):
         groups[1].burn(2)
     assert groups[0]._step == groups[1]._step
-    assert torch.equal(groups[0].kstack["tables"], tables)
+    assert torch.equal(groups[0].kstack.tensors[groups[0].device]["tables"], tables)
     assert not torch.equal(groups[0].state, groups[1].state)
 
 
@@ -438,7 +439,8 @@ def test_promedus_group_builds_and_advances_at_full_width():
         assert x.route == "kernel"
         x.add_variants([m, m])
         x.advance()
-    assert gibbs_cuda.uses_gather(p.kstack) and set(sweep.COMPACT_KEYS) <= set(p.kstack)
+    kst = p.kstack.tensors[p.device]
+    assert gibbs_cuda.uses_gather(kst) and set(sweep.COMPACT_KEYS) <= set(kst)
     assert torch.equal(g.state, p.state) and torch.equal(g.halves, p.halves)
     assert p.total_samples == 2 * 4 * 2 * int(m.free_mask.sum())
 
@@ -497,12 +499,13 @@ def test_ops_route_checkpoint_resumes_on_the_kernel_route(tmp_path):
         g.burn(3)
         g.advance()
         groups.append(g)
-    assert "c_lists" not in groups[0].kstack
+    assert "c_lists" not in groups[0].kstack.tensors[groups[0].device]
     ck = str(tmp_path / "ops.npz")
     save_checkpoint(ck, groups[0])
     resumed, _ = load_checkpoint(ck, m, device="cpu",
                                  make_group=lambda mm, **kw: ChainGroup(mm, caps=caps, **kw))
-    assert resumed.route == "kernel" and gibbs_cuda.uses_gather(resumed.kstack)
+    assert resumed.route == "kernel" and gibbs_cuda.uses_gather(
+        resumed.kstack.tensors[resumed.device])
     for g in (resumed, groups[1]):
         g.advance()
     assert torch.equal(resumed.state, groups[1].state)

@@ -132,9 +132,9 @@ def test_burn_annealed_restores_tables():
     m = torch_models.build(port_pgm, "grid3")
     g = ChainGroup(m, chains_per_variant=8, converge_window=8, device="cpu", seed=2)
     g.add_variant(m)
-    tables = g.kstack["k_tables"].clone()
+    tables = g.kstack.tensors[g.device]["k_tables"].clone()
     g.burn_annealed(12, stages=3)
-    assert torch.equal(g.kstack["k_tables"], tables)
+    assert torch.equal(g.kstack.tensors[g.device]["k_tables"], tables)
     assert g.total_sweeps == 12
 
 

@@ -209,9 +209,10 @@ def test_launch_counters_on_card(cuda_device, mesh):
     rest = g.totals[:, :caps.num_vars, 0].sum()
     assert counters["sites.rest_derived"] == rest and 0 < rest < taken
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    plans = {gibbs_cuda.plan_launch(kst, g.local_chains, True, sms)
-             for _, _, _, kst in g._kernel_launches()}
-    assert len(plans) == 1 and len(g._kernel_launches()) == (4 if mesh else 1)
+    launches = [(h, na, stack) for h, _, _, na, stack in g.launches() if stack.kernel]
+    plans = {gibbs_cuda.plan_launch(stack.cut(h.device, na), g.local_chains, True, sms)
+             for h, na, stack in launches}
+    assert len(plans) == 1 and len(launches) == (4 if mesh else 1)
     spilled = gibbs_cuda.occupancy(16, plans.pop())["local_bytes"] > 0
     assert counters["sites.spilled"] == (taken if spilled else 0)
 
@@ -264,7 +265,6 @@ def test_merged_site_counter_reads_the_lists_share(cuda_device, tmp_path, monkey
     """An engine run of ``-s simple`` on the Promedus-shaped net on the
     card: ``sites.merged`` over ``RunResult.samples`` is the share of live
     sites on merged tables that the group's lists hold."""
-    from grample_tpu_torch.sampler import chains
     from grample_tpu_torch.sampler.engine import Engine, EngineConfig
     from grample_tpu_torch.uai.writer import write_model
 
@@ -278,7 +278,7 @@ def test_merged_site_counter_reads_the_lists_share(cuda_device, tmp_path, monkey
         seen.append(kst["c_lists"][:, [layout.H_SITES, layout.H_MERGED]].astype(np.int64))
         return layout.merged_sites(kst)
 
-    monkeypatch.setattr(chains, "merged_sites", spy)
+    monkeypatch.setattr(sweep, "merged_sites", spy)
     cfg = EngineConfig(model_path=path, device="cuda", burnin=100, converge_window=200,
                        chains=2, chains_per_variant=8192, max_secs=4.0, seed=3)
     res = Engine(cfg, log=lambda line: None).run()
@@ -561,7 +561,7 @@ def test_sharded_over_two_cards(cuda_device, n_cards):
     assert sorted(str(sh.device) for sh in g.shards) == [f"cuda:{i}" for i in range(n_cards)]
     for sh in g.shards:
         assert sh.state.device == sh.halves.device == sh.device
-        assert all(t.device == sh.device for t in g.kstack[sh.vi][sh.device].values())
+        assert all(t.device == sh.device for t in g.kstack[sh.vi].tensors[sh.device].values())
         assert launched[str(sh.device)] >= 2
     p.add_variants([m, m])
     p.burn(3)

@@ -52,6 +52,43 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_samplers_reach_the_sweep_through_its_owner():
+    """Importing every module of the samplers and of the mesh loads
+    neither the kernel's binding (``ops.gibbs_cuda``) nor its layout
+    (``ops.layout``) through those modules, and none of them holds a name
+    of either: they reach the sweep through ``ops.sweep``, the one owner of
+    a group's sweep tensors and of the kernel's facts."""
+    code = (
+        "import builtins, importlib, importlib.util, pkgutil, sys\n"
+        "BAD = ('grample_tpu_torch.ops.gibbs_cuda', 'grample_tpu_torch.ops.layout')\n"
+        "OURS = ('grample_tpu_torch.sampler', 'grample_tpu_torch.parallel')\n"
+        "seen, real = [], builtins.__import__\n"
+        "def hook(name, g=None, l=None, fromlist=(), level=0):\n"
+        "    who = (g or {}).get('__name__') or ''\n"
+        "    if who.startswith(OURS):\n"
+        "        base = importlib.util.resolve_name('.' * level + name, g['__package__']) "
+        "if level else name\n"
+        "        seen.extend((who, t) for t in [base] + [base + '.' + f for f in fromlist or ()]"
+        " if t.startswith(BAD))\n"
+        "    return real(name, g, l, fromlist, level)\n"
+        "builtins.__import__ = hook\n"
+        "names = [m.name for pkg in OURS for m in pkgutil.walk_packages("
+        "importlib.import_module(pkg).__path__, pkg + '.')]\n"
+        "assert len(names) >= 8, names\n"
+        "for n in names: importlib.import_module(n)\n"
+        "held = [(n, k) for n in (*OURS, *names) for k, v in vars(sys.modules[n]).items()"
+        " if str(getattr(v, '__name__', '')).startswith(BAD)"
+        " or getattr(v, '__module__', '') in BAD]\n"
+        "assert not seen and not held, (seen, held)\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 8
+
+
 # ---- UAI I/O ----------------------------------------------------------------
 
 def test_parse_pascal_matches_reference():

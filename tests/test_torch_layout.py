@@ -323,12 +323,13 @@ def test_gather_lists_in_slot_writes_and_scaling(name):
     g.reserve(4)
     g.add_variants(variants[:2])
     g.add_variants(variants[2:] or variants[:1])
-    assert gibbs_cuda.uses_gather(g.kstack) and set(layout.COMPACT_KEYS) <= set(g.kstack)
+    kst = g.kstack.tensors[g.device]
+    assert gibbs_cuda.uses_gather(kst) and set(layout.COMPACT_KEYS) <= set(kst)
     want = sweep.sweep_tensors(port_encode.stack_variants(g.encs), "cpu")
-    assert set(want) == set(g.kstack)
+    assert set(want) == set(g.kstack.tensors[g.device])
     n = len(g.encs)
     for key, w in want.items():
-        got = g.kstack[key][:n]
+        got = g.kstack.tensors[g.device][key][:n]
         if key in layout.COMPACT_KEYS:
             assert got.shape[1] >= w.shape[1] and not got[:, w.shape[1]:].any()
             got = got[:, :w.shape[1]]
@@ -355,14 +356,15 @@ def test_caps_growth_into_the_gather_bank_rebuilds_the_lists():
     g = ChainGroup(unaries, chains_per_variant=8, converge_window=4, device="cpu", seed=1,
                    caps=caps)
     g.add_variants([unaries])
-    assert g.route == "kernel" and not gibbs_cuda.uses_gather(g.kstack)
+    assert g.route == "kernel" and not gibbs_cuda.uses_gather(g.kstack.tensors[g.device])
     g.add_variants([m])
-    assert g.caps.gfac_cap > 0 and g.route == "kernel" and gibbs_cuda.uses_gather(g.kstack)
+    assert g.caps.gfac_cap > 0 and g.route == "kernel"
+    assert gibbs_cuda.uses_gather(g.kstack.tensors[g.device])
     want = sweep.sweep_tensors(port_encode.stack_variants(g.encs), "cpu")
     for key in layout.COMPACT_KEYS:
-        got = g.kstack[key][:, :want[key].shape[1]]
+        got = g.kstack.tensors[g.device][key][:, :want[key].shape[1]]
         assert torch.equal(got, want[key]), key
-    assert layout.compact_counts(g.kstack["c_lists"].numpy())[1, 5] == 12
+    assert layout.compact_counts(g.kstack.tensors[g.device]["c_lists"].numpy())[1, 5] == 12
     g.burn(2)
     assert g.advance(2) == 2 * 8 * 2 * 12
 
@@ -569,14 +571,14 @@ def test_slot_write_equals_restack():
                    collapse_headroom=True)
     g.reserve(4)
     g.add_variants([m, m])
-    before = {k: g.kstack[k].shape[1] for k in layout.COMPACT_KEYS}
+    before = {k: g.kstack.tensors[g.device][k].shape[1] for k in layout.COMPACT_KEYS}
     g.add_variants([collapse_var(m, 0)[0]])
     g.add_variants([collapse_var(m, 3)[0]])
-    assert g.kstack["c_tables"].shape[1] > before["c_tables"]
+    assert g.kstack.tensors[g.device]["c_tables"].shape[1] > before["c_tables"]
     want = sweep.sweep_tensors(port_encode.stack_variants(g.encs), "cpu")
-    assert set(want) == set(g.kstack)
+    assert set(want) == set(g.kstack.tensors[g.device])
     for key, w in want.items():
-        got = g.kstack[key]
+        got = g.kstack.tensors[g.device][key]
         if key in layout.COMPACT_KEYS:
             assert got.shape[1] >= w.shape[1] and not got[:, w.shape[1]:].any()
             got = got[:, :w.shape[1]]

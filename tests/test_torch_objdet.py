@@ -253,8 +253,10 @@ def test_launch_counters_count_the_claimed_updates(tmp_path, monkeypatch, spille
     g.advance()
     assert not {"sites.tables_global", "sites.spilled"} & set(g.tracer.counters)
     card = torch.device("cuda", 0)
-    monkeypatch.setattr(g, "_kernel_launches", lambda: [
-        (card, 0, 2, {k: v[:2] for k, v in g.kstack.items()})])
+    # the group's one launch, on the card: its stack runs the kernel there
+    monkeypatch.setattr(g.kstack, "kernel", True)
+    monkeypatch.setitem(g.kstack.tensors, card, g.kstack.tensors[g.device])
+    monkeypatch.setattr(g, "device", card)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: NS(multi_processor_count=132))
     seen = []

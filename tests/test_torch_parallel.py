@@ -297,14 +297,14 @@ def test_idle_rows_launch_nothing():
     g = _sharded(m, "2x2", 8, 6, 1)
     g.reserve(4)
     g.add_variants([m, m])
-    assert [(sh.vi, sh.ci, na) for sh, na, _ in g.active_shards()] == [(0, 0, 2), (0, 1, 2)]
+    assert [(sh.vi, sh.ci, na) for sh, _, _, na, _ in g.launches()] == [(0, 0, 2), (0, 1, 2)]
     before = [sh.state.clone() for sh in g.shards]
     g.advance()
     assert [torch.equal(sh.state, b) for sh, b in zip(g.shards, before)] == \
         [False, False, True, True]
     assert all(int(sh.halves.sum()) == 0 for sh in g.shards[2:])
     g.add_variant(m)
-    assert [na for _, na, _ in g.active_shards()] == [2, 2, 1, 1]
+    assert [na for _, _, _, na, _ in g.launches()] == [2, 2, 1, 1]
 
 
 def test_state_is_read_only():
@@ -328,8 +328,9 @@ def test_rows_keep_their_own_capacity():
     g = _sharded(m, "2x2", 8, 6, 1, collapse_headroom=True)
     g.reserve(4)
     g.add_variants([m, m, m, collapse_var(m, 0)[0]])
-    assert len(g.kstack) == 2 and all(list(row) == [torch.device("cpu")] for row in g.kstack)
-    widths = [row[torch.device("cpu")]["c_tables"].shape[1] for row in g.kstack]
+    assert len(g.kstack) == 2 and all(list(row.tensors) == [torch.device("cpu")]
+                                      for row in g.kstack)
+    widths = [row.tensors[torch.device("cpu")]["c_tables"].shape[1] for row in g.kstack]
     assert widths[1] > widths[0]
     p = ChainGroup(m, 8, 6, "cpu", seed=1, collapse_headroom=True)
     p.cb = g.cb
@@ -544,14 +545,14 @@ def test_cli_mesh_auto_runs_unsharded(tmp_path, capsys):
 def test_window_seed_is_shared_by_the_shards(monkeypatch):
     """One window takes one step of the group's seed sequence, whatever
     the mesh: each shard's launch seed derives from it."""
-    import grample_tpu_torch.parallel.mesh as port_mesh
+    from grample_tpu_torch.ops import sweep
 
     m = torch_models.build(port_pgm, "grid3")
     g = _sharded(m, "2x2", 8, 6, 5)
     g.add_variants([m, m])
     seeds = []
-    real = port_mesh.advance_chains
-    monkeypatch.setattr(port_mesh, "advance_chains",
+    real = sweep.advance_chains
+    monkeypatch.setattr(sweep, "advance_chains",
                         lambda kst, st, hv, seed, *a, **kw: (seeds.append(seed),
                                                              real(kst, st, hv, seed, *a, **kw))[1])
     step = g._step

@@ -224,7 +224,7 @@ def test_gate_refuses_gather_model():
     g = ChainGroup(m, 256, 64, device="cpu", caps=caps, seed=3)
     assert g.route == "kernel"
     g.add_variants([m, m])
-    assert set(sweep.COMPACT_KEYS) <= set(g.kstack)
+    assert set(sweep.COMPACT_KEYS) <= set(g.kstack.tensors[g.device])
     g.burn(16)
     before = dict(gibbs_bank.window_ops.launches_by_form)
     g.advance()

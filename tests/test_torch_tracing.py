@@ -12,9 +12,11 @@ import sys
 import types
 
 import pytest
+import torch
 
 import grample_tpu_torch.pgm.discrete as port_pgm
 from grample_tpu_torch import tracing
+from grample_tpu_torch.ops import gibbs_cuda
 from grample_tpu_torch.parallel.mesh import ShardedChainGroup, chain_mesh
 from grample_tpu_torch.pgm.encode import compute_caps
 from grample_tpu_torch.sampler.chains import ChainGroup
@@ -185,12 +187,17 @@ def test_a_merge_that_drops_one_shard_reads_three_quarters(tmp_path, monkeypatch
 
 @pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
 @pytest.mark.parametrize("mesh", [False, True], ids=["group", "mesh2x2"])
-def test_rest_derived_counts_outcome_zero_where_the_kernel_ran(mesh, kernel):
+def test_rest_derived_counts_outcome_zero_where_the_kernel_ran(monkeypatch, mesh, kernel):
     """``sites.rest_derived`` (the draws whose count the CUDA kernel
     derives once a window, outcome 0's) is absent where the plain version
     ran the windows, as on the CPU, since it counts every outcome; where
     a group's windows ran the kernel (here pretended) it is the outcome-0
-    updates folded into the totals, real vars only."""
+    updates folded into the totals, real vars only.  The launch counters
+    come with it: ``sites.merged`` always (every site of the grid walks a
+    merged table), ``sites.tables_global`` and ``sites.spilled`` only
+    where the kernel ran, here 0 (the grid's tables are staged) and every
+    claimed update (a spilling instance pretended), summed over the
+    launches of the group or of the mesh's shards."""
     m = torch_models.MODELS["grid4_evid"][0](port_pgm)
     caps = compute_caps(m, headroom_factors=0)
     if mesh:
@@ -200,17 +207,22 @@ def test_rest_derived_counts_outcome_zero_where_the_kernel_ran(mesh, kernel):
         g = ChainGroup(m, 32, 8, "cpu", seed=3, caps=caps)
     g.reserve(2)
     g.add_variants([m, m])
-    taken = g.advance(defer=True) + g.advance(defer=True)
     if kernel:
-        g._kernel_launches = lambda: [None]
+        for stack in (g.kstack if mesh else [g.kstack]):
+            monkeypatch.setattr(stack, "kernel", True)
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: types.SimpleNamespace(multi_processor_count=132))
+        monkeypatch.setattr(gibbs_cuda, "spills", lambda k, plan, dev: True)
+    taken = g.advance(defer=True) + g.advance(defer=True)
     g.flush()
     c = g.tracer.counters
-    assert c["sites.folded"] == taken > 0
+    assert c["sites.folded"] == c["sites.merged"] == taken > 0
     if not kernel:
-        assert "sites.rest_derived" not in c
+        assert not {"sites.rest_derived", "sites.tables_global", "sites.spilled"} & set(c)
         return
     rest = g.totals[:, :caps.num_vars, 0].sum()
     assert c["sites.rest_derived"] == rest and 0 < rest < taken
+    assert c["sites.tables_global"] == 0 and c["sites.spilled"] == taken
 
 
 @pytest.mark.parametrize("split", ["off", "on"])
